@@ -57,8 +57,10 @@ def _jax_layout(name: str, a):
     return a.T if name.endswith(".weight") else a
 
 
-def params_from_jax(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) -> a ``FullModel`` state_dict."""
+def params_from_jax(tree: dict[str, Any],
+                    dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> a ``FullModel`` state_dict in ``dtype``."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path: list[str]) -> None:
@@ -70,10 +72,34 @@ def params_from_jax(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
                 walk(v, path + [str(i)])
         else:
             name = ".".join(path[:-1] + [_TORCH_NAME[path[-1]]])
-            out[name] = torch.tensor(_jax_layout(name, np.asarray(node, dtype=np.float32)))
+            out[name] = torch.tensor(_jax_layout(name, np.asarray(node, dtype=np_dtype)))
 
     walk(tree, [])
     return out
+
+
+def params_to_jax(model: torch.nn.Module) -> dict[str, Any]:
+    """A model's parameters as the JAX parameter tree, numpy leaves in their dtype.
+
+    The inverse of ``params_from_jax``: weights go back to ``(in, out)`` and
+    numbered modules (``conv.0``, ``trunk.3``) become lists.
+    """
+    tree: dict[str, Any] = {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[{"weight": "w", "bias": "b"}[leaf]] = _jax_layout(name, t.detach().cpu().numpy())
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def load_jax_npz(path: str, model: FullModel) -> FullModel:

@@ -6,9 +6,13 @@ missing half, deterministic real encoder on the existing half), only random
 is HyperCloud (VAE on existing), only real is HyperRec.
 
 The module holds fp32 master parameters. With ``compute_dtype="bfloat16"``
-``apply`` casts parameters and inputs to bf16 at use and returns fp32, as
-the JAX package does; ``serving_params`` makes the cast once for serving.
-Only the inference forward (``training=False``) is ported.
+``apply`` casts parameters and inputs to bf16 at use, so gradients reach the
+fp32 masters through the casts, and returns fp32, as the JAX package does;
+``serving_params`` makes the cast once for serving. ``apply(training=True)``
+is the training forward, with autograd alive: the encoders run their
+differentiable trunk (``fast=False``) and it returns ``(reconstruction, mu,
+sigma)``. ``apply(training=False)`` is the inference forward, under
+``torch.no_grad``, with the encoders' fused trunk kernel.
 """
 
 from __future__ import annotations
@@ -87,6 +91,11 @@ class FullModel(nn.Module):
             return MODE_HYPER_CLOUD
         return MODE_HYPER_REC
 
+    @property
+    def has_generativity(self) -> bool:
+        """Only HyperPocket trains with the KLD term."""
+        return self.mode == MODE_HYPER_POCKET
+
     def get_noise_size(self) -> int:
         return self.random_encoder_output_size
 
@@ -108,45 +117,68 @@ class FullModel(nn.Module):
         cd = self.compute_torch_dtype
         return self if cd == torch.float32 else copy.deepcopy(self).to(cd)
 
-    def _get_latent(self, existing, missing, generator, noise, eps):
-        """Mode-specific latent of the inference forward (encoders on the kernel path)."""
+    def _get_latent(self, existing, missing, generator, training, noise, eps):
+        """Mode-specific ``(latent, mu, sigma)``; mu and sigma only when training a VAE.
+
+        Training runs the encoders' differentiable trunk; inference runs the
+        fused trunk kernel (``fast=True``) and takes the VAE's mu as its
+        latent when no ``noise`` is given.
+        """
         mode = self.mode
+        fast = not training
         if mode == MODE_HYPER_POCKET:
+            if training:
+                z, mu, sigma = self.random_encoder(missing, is_vae=True, generator=generator,
+                                                   eps=eps)
+                real_mu = self.real_encoder(existing, is_vae=False)
+                return torch.cat([z, real_mu], dim=1), mu, sigma
             if noise is None:
                 _, noise, _ = self.random_encoder(missing, is_vae=True, generator=generator,
                                                   fast=True, eps=eps)
             real_mu = self.real_encoder(existing, is_vae=False, fast=True)
-            return torch.cat([noise, real_mu], dim=1)
+            return torch.cat([noise, real_mu], dim=1), None, None
         if mode == MODE_HYPER_REC:
-            return self.real_encoder(existing, is_vae=False, fast=True)
+            return self.real_encoder(existing, is_vae=False, fast=fast), None, None
+        # HyperCloud: the VAE encoder runs on the existing half
+        if training:
+            return self.random_encoder(existing, is_vae=True, generator=generator, eps=eps)
         if noise is None:
             _, noise, _ = self.random_encoder(existing, is_vae=True, generator=generator,
                                               fast=True, eps=eps)
-        return noise
+        return noise, None, None
 
-    @torch.no_grad()
     def apply(self, existing: torch.Tensor, missing: torch.Tensor | None,
               generator: torch.Generator | None, epoch, *, num_output_points: int = 2048,
               training: bool = True, noise: torch.Tensor | None = None,
               vae_eps: torch.Tensor | None = None,
-              ball_points: torch.Tensor | None = None) -> torch.Tensor:
-        """Inference forward: (B, num_output_points, 3) reconstruction.
+              ball_points: torch.Tensor | None = None):
+        """The forward pass.
 
-        existing/missing: (B, N, 3) clouds. ``vae_eps`` (B, Z_rand) and
-        ``ball_points`` (B, num_output_points, 3) replace the two random draws
-        with given values. Sub-fp32 compute returns fp32.
+        existing/missing: (B, N, 3) clouds. Training returns
+        ``(reconstruction (B, num_output_points, 3), mu, sigma)`` with sigma =
+        exp(std head), or mu and sigma None for HyperRec; inference returns
+        the reconstruction only. ``vae_eps`` (B, Z_rand) and ``ball_points``
+        (B, num_output_points, 3) replace the two random draws with given
+        values. Sub-fp32 compute returns fp32; fp32 and fp64 return their own
+        dtype.
         """
-        if training:
-            raise NotImplementedError(
-                "FullModel.apply(training=True) is not ported yet: it needs the encoder's "
-                "sparse max-pool backward (ROADMAP.md, slice 2: the training forward)")
+        if not training:
+            with torch.no_grad():
+                return self._forward(existing, missing, generator, epoch, num_output_points,
+                                     False, noise, vae_eps, ball_points)
+        return self._forward(existing, missing, generator, epoch, num_output_points, True,
+                             noise, vae_eps, ball_points)
+
+    def _forward(self, existing, missing, generator, epoch, num_output_points, training,
+                 noise, vae_eps, ball_points):
         cd = self.compute_torch_dtype
 
         def cast(a):
             return a if a is None else a.to(cd)
 
         existing, missing, noise = cast(existing), cast(missing), cast(noise)
-        latent = self._get_latent(existing, missing, generator, noise, vae_eps)
+        latent, mu, sigma = self._get_latent(existing, missing, generator, training, noise,
+                                             vae_eps)
         flat_weights = self.hyper_network(latent)
         if ball_points is None:
             ball_points = generate_target_network_input_batch(
@@ -156,4 +188,8 @@ class FullModel(nn.Module):
             flat_weights, ball_points.to(device=flat_weights.device, dtype=cd),
             list(self.target_layer_out_channels), self.target_use_bias)
         out_dtype = cd if torch.finfo(cd).bits >= 32 else torch.float32
-        return reconstruction.to(out_dtype)
+        reconstruction = reconstruction.to(out_dtype)
+        if not training:
+            return reconstruction
+        return (reconstruction, None if mu is None else mu.to(out_dtype),
+                None if sigma is None else sigma.to(out_dtype))

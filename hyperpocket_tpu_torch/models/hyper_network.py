@@ -6,7 +6,9 @@ last) and one fused head ``2048 -> sum(target_layer_sizes)`` whose output
 concatenates every target layer's flattened weight and bias in layer order.
 Each head's row block is initialised as its own layer (Xavier-ReLU with that
 head's fan-out), or with torch's default ``nn.Linear`` reset when
-``freeze_layers_learning`` is set; freezing changes only the init here.
+``freeze_layers_learning`` is set. Frozen heads are also used detached, the
+counterpart of the JAX package's ``lax.stop_gradient``, and
+``train/optim.py`` leaves them out of the optimizer.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ class HyperNetwork(nn.Module):
                  use_bias: bool = True, target_network_use_bias: bool = True,
                  freeze_heads: bool = False, generator: torch.Generator | None = None):
         super().__init__()
+        self.freeze_heads = freeze_heads
         dims = (input_size,) + TRUNK_SIZES
         self.trunk = nn.ModuleList(
             nn.Linear(dims[i], dims[i + 1], bias=use_bias) for i in range(len(TRUNK_SIZES)))
@@ -66,4 +69,7 @@ class HyperNetwork(nn.Module):
             h = dense(layer, h)
             if i < len(self.trunk) - 1:
                 h = torch.relu(h)
-        return dense(self.heads, h)
+        w, b = self.heads.weight, self.heads.bias
+        if self.freeze_heads:
+            w, b = w.detach(), b.detach()
+        return nn.functional.linear(h, w.to(h.dtype), b.to(h.dtype))

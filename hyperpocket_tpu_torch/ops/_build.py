@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, in ``hyperpocket_tpu_torch/_build/<hash>/``
-where the hash covers the sources and the flags: a changed source builds
-anew, an unchanged one loads the library already there. The sources include
-no PyTorch header, so a build takes seconds rather than minutes.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, in
+``hyperpocket_tpu_torch/_build/<hash>/`` where the hash covers the sources,
+the headers beside them and the flags: a changed source builds anew, an
+unchanged one loads the library already there. The sources include no
+PyTorch header, so a build takes seconds rather than minutes.
 
 A build failure raises; nothing falls back to another implementation.
 """
@@ -24,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libhpcd_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def sources() -> list[Path]:
@@ -32,8 +35,8 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -56,15 +59,32 @@ def build(out_dir: Path, nvcc: str | None = None) -> Path:
     nvcc = nvcc or find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / LIB_NAME
-    # write under a per-process name, then rename: concurrent builders never
-    # load a half-written library
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    # objects and the library are written under per-process names, then the
+    # library is renamed: concurrent builders never load a half-written one
+    tag = os.getpid()
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    failures = []
+    for cmd, proc in zip(compiles, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}{err}")
+    try:
+        if failures:
+            raise RuntimeError("nvcc failed with " + "\n".join(failures))
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -194,13 +194,6 @@ def test_serving_params_cast_once_and_match():
     assert fp32.serving_params() is fp32
 
 
-def test_training_forward_is_not_ported():
-    _, _, port = model_pair(tiny_config())
-    data = {k: torch.from_numpy(v) for k, v in inputs(port).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.apply(data["existing"], data["missing"], None, 1.0, training=True)
-
-
 def test_no_encoder_is_rejected():
     cfg = tiny_config()
     cfg["random_encoder"]["output_size"] = 0

@@ -148,16 +148,23 @@ def test_build_failure_raises(tmp_path):
 
 
 def test_build_hash_covers_sources_and_flags(monkeypatch, tmp_path):
-    assert [p.name for p in _build.sources()] == ["trunk_pool.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "nn_min_fused.cu", "nn_one_direction.cu", "trunk_pool.cu"]
     base = _build.source_hash()
     assert base == _build.source_hash() and len(base) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.source_hash() != base
     monkeypatch.undo()
-    copy = tmp_path / "csrc"
-    copy.mkdir()
-    src = _build.sources()[0]
-    (copy / src.name).write_bytes(src.read_bytes() + b"\n// edited\n")
-    monkeypatch.setattr(_build, "CSRC", copy)
-    assert _build.source_hash() != base
+    files = sorted(_build.CSRC.glob("*.cu*"))
+    assert "nn_common.cuh" in [f.name for f in files]
+    for edited in ("trunk_pool.cu", "nn_common.cuh"):  # a source, and a header beside them
+        copy = tmp_path / edited / "csrc"
+        copy.mkdir(parents=True)
+        for f in files:
+            (copy / f.name).write_bytes(f.read_bytes() + (b"\n// edited\n" if f.name == edited
+                                                          else b""))
+        monkeypatch.setattr(_build, "CSRC", copy)
+        assert _build.source_hash() != base
+        monkeypatch.undo()
+    assert _build.source_hash() == base
     assert os.path.basename(_build.BUILD_ROOT) == "_build"
