@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one GPU.
+"""Drive the PyTorch/CUDA port's serving, training and experiments paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
@@ -47,8 +47,34 @@ Phases, each fatal on any error:
    B=60 (K3 once); bf16: 3 train steps and a val step (K4 twice, K3 once).
    Losses finite, parameters changed; train and val step times at B=64.
 
+9. EMD kernels vs plain: K6 (``match_cost_fwd_kernel``) and K7
+   (``match_cost_bwd_kernel``, ``ops/emd.py``) against their plain versions
+   at the eval dispatch (B=512, N=M=1024), B=64 with N=M=2048, unequal
+   counts (2048x1024, 1024x2048, 300x128), ragged (200x136), B=1 and
+   coincident clouds (x == y): costs within rtol 1e-4; gradients within
+   relative L2 1e-4 and every entry within 1e-2 of the tensor's largest
+   (the share of entries beyond 1e-4 of it and the worst entry's elementwise
+   ratio are printed); both kernels deterministic; each kernel and plain
+   version timed with CUDA events at the first two shapes.
+10. EMD descent: the JAX package's descent check (B=16, N=M=128, ten steps of
+   gradient descent on the match cost) through ``match_cost`` on the card
+   (K6 and K7) and through the plain forward and backward called directly:
+   loss trajectories within rtol 2e-3, the loss falls, K6 and K7 launch 10
+   times each.
+11. experiments slice: the chair weights above in fp32, written as a
+   JAX-layout checkpoint for each of ``settings/config_missing_shapenet.json``
+   (``evaluate_generativity``) and ``settings/config_3depn_chair.json``
+   (``fixed`` + ``compute_mmd_tmd_uhd``), each run through
+   ``hyperpocket_tpu_torch.cli.main`` on a corpus of 16 objects of one
+   category that the smoke writes itself; only ``mode``, ``dataset.path``,
+   ``dataset.classes`` and ``results_root`` are overridden. Metrics must be
+   finite; K6 and K3 must launch once per 512-pair dispatch, and
+   ``compute_mmd_tmd_uhd`` must launch K3 as its calls require. The wall time
+   of each experiment and of its parts is printed.
+
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
-B=256 and B=64 and one fp32 and one bf16 train step at B=64, the wall time
+B=256 and B=64, one fp32 and one bf16 train step at B=64 and one 512-pair
+CD + EMD dispatch of ``evaluate_generativity`` at N=M=1024, the wall time
 per call and the device time per call by kernel (``torch.profiler``) to
 PATH as JSON.
 
@@ -83,6 +109,18 @@ CHAMFER_RTOL = 1e-5  # the fp32 parity budget
 CHAMFER_GRAD_ATOL = 5e-3  # tests/test_pallas_nn.py: argmin near-ties
 NEAR_TIE = 1e-6  # the plain loss's expansion rounds distances by ~1e-7 here
 STEP_GRAD_REL_L2 = 1e-3
+EMD_RTOL = 1e-4  # tests/test_pallas_emd.py: the cost
+# the gradients: relative L2 within 1e-4 (the JAX package's rtol, over each
+# tensor) and every entry within 1e-2 of the tensor's largest entry. Two fp32
+# evaluations of the 9 rounds part at a few entries: the kernel and its plain
+# version by up to 4.0e-3 of that scale on these and the card tests' inputs,
+# and each lies up to 9.2e-3 from an fp64 evaluation; kernels with a broken
+# round or a dropped query read 0.26 or more (PERF.md)
+EMD_GRAD_REL_L2, EMD_GRAD_MAX, EMD_GRAD_ATOL = 1e-4, 1e-2, 1e-6
+DESCENT_RTOL = 2e-3  # tests/test_pallas_emd.py::test_emd_descent_parity_pallas_vs_xla
+EVAL_CONFIGS = ("config_missing_shapenet.json", "config_3depn_chair.json")
+EVAL_CATEGORY = "03001627"  # chair: the one category each eval corpus holds
+EVAL_OBJECTS = 16
 N_EXISTING, N_OUT = 1024, 2048
 SERVE_BATCH, BENCH_BATCH = 64, 256
 TRAIN_BATCH, VAL_BATCH = 64, 60
@@ -570,6 +608,268 @@ def drive_training(config: dict, model32, device) -> dict:
     return out
 
 
+def emd_cases(device) -> dict:
+    """The clouds K6 and K7 are held to their plain versions on, by case name."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+
+    def cloud(b, n):
+        return torch.randn((b, n, 3), generator=gen, device=device) * 0.3
+
+    same = cloud(4, N_EXISTING)
+    return {
+        "B512_1024": (cloud(512, N_EXISTING), cloud(512, N_EXISTING)),  # one eval dispatch
+        "B64_2048": (cloud(TRAIN_BATCH, N_OUT), cloud(TRAIN_BATCH, N_OUT)),
+        "B4_2048x1024": (cloud(4, N_OUT), cloud(4, N_EXISTING)),  # budget multiplier 2
+        "B4_1024x2048": (cloud(4, N_EXISTING), cloud(4, N_OUT)),
+        "B3_300x128": (cloud(3, 300), cloud(3, 128)),  # multiplier 2 by integer division
+        "ragged_B3_200x136": (cloud(3, 200), cloud(3, 136)),
+        "B1_1024": (cloud(1, N_EXISTING), cloud(1, N_EXISTING)),
+        "coincident_B4_1024": (same, same.clone()),  # x == y: K7's 1e-20 clamp
+    }
+
+
+def emd_kernels_vs_plain(device) -> dict:
+    """K6 and K7 vs their plain versions; both timed at the eval and the B=64 shapes."""
+    from hyperpocket_tpu_torch.ops.emd import (
+        match_cost_bwd_kernel,
+        match_cost_bwd_reference,
+        match_cost_fwd_kernel,
+        match_cost_fwd_reference,
+    )
+
+    cases = emd_cases(device)
+    out = {"cases": {}}
+    cost_err = grad_err = 0.0
+    for name, (x, y) in cases.items():
+        cost = match_cost_fwd_kernel(x, y)
+        gx, gy = match_cost_bwd_kernel(x, y)
+        torch.cuda.synchronize()
+        check(torch.equal(match_cost_fwd_kernel(x, y), cost), f"{name}: K6 is not deterministic")
+        again = match_cost_bwd_kernel(x, y)
+        check(torch.equal(again[0], gx) and torch.equal(again[1], gy),
+              f"{name}: K7 is not deterministic")
+        want = match_cost_fwd_reference(x, y)
+        want_x, want_y = match_cost_bwd_reference(x, y)
+        check(cost.shape == (x.shape[0],) and gx.shape == x.shape and gy.shape == y.shape,
+              f"{name}: K6/K7 output shapes")
+        check(all(bool(torch.isfinite(t).all()) for t in (cost, gx, gy)),
+              f"{name}: non-finite K6/K7 output")
+        rel = ((cost - want).abs() / want.abs()).max().item()
+        res = {"cost_rel_err": rel}
+        for tag, got, ref in (("gx", gx, want_x), ("gy", gy, want_y)):
+            err = (got - ref).abs()
+            scale = ref.abs().max().item()
+            diff_l2, ref_l2 = (got - ref).norm().item(), ref.norm().item()
+            res[f"{tag}_err"] = err.max().item()
+            res[f"{tag}_scale"] = scale
+            res[f"{tag}_rel_l2"] = diff_l2 / ref_l2 if ref_l2 else diff_l2
+            # for the record: entries beyond 1e-4 of the largest, and the worst
+            # entry against the elementwise rtol 1e-4 / atol 1e-6
+            res[f"{tag}_share_beyond_1e-4"] = (
+                err > 1e-4 * scale + EMD_GRAD_ATOL).float().mean().item()
+            res[f"{tag}_elementwise_ratio"] = (err / (EMD_GRAD_ATOL + 1e-4 * ref.abs())).max().item()
+            check(diff_l2 <= EMD_GRAD_REL_L2 * ref_l2 + EMD_GRAD_ATOL,
+                  f"{name}: K7 {tag} relative L2 {res[f'{tag}_rel_l2']} > {EMD_GRAD_REL_L2}")
+            check(res[f"{tag}_err"] <= EMD_GRAD_MAX * scale + EMD_GRAD_ATOL,
+                  f"{name}: K7 {tag} max |kernel - plain| {res[f'{tag}_err']} > "
+                  f"{EMD_GRAD_MAX} * {scale} + {EMD_GRAD_ATOL}")
+            grad_err = max(grad_err, res[f"{tag}_err"])
+        print(f"emd kernels vs plain {name}: {json.dumps(res)}")
+        check(rel <= EMD_RTOL, f"{name}: K6 relative error {rel} > {EMD_RTOL}")
+        cost_err = max(cost_err, (cost - want).abs().max().item())
+        out["cases"][name] = res
+    out["errs"] = {"emd_match_cost": cost_err, "emd_match_cost_grad": grad_err}
+    out["times"] = {}
+    for name in ("B512_1024", "B64_2048"):
+        x, y = cases[name]
+        t = {
+            "emd_match_cost": {
+                "ms": cuda_ms(lambda: match_cost_fwd_kernel(x, y), iters=3, windows=3),
+                "plain_ms": cuda_ms(lambda: match_cost_fwd_reference(x, y), iters=1, windows=3,
+                                    warmup=1)},
+            "emd_match_cost_grad": {
+                "ms": cuda_ms(lambda: match_cost_bwd_kernel(x, y), iters=3, windows=3),
+                "plain_ms": cuda_ms(lambda: match_cost_bwd_reference(x, y), iters=1, windows=3,
+                                    warmup=1)},
+        }
+        for v in t.values():
+            v["ms_per_pair"] = v["ms"] / x.shape[0]
+            v["plain_ms_per_pair"] = v["plain_ms"] / x.shape[0]
+        out["times"][name] = t
+        print(f"emd kernel timing {name}: {json.dumps(t)}")
+    return out
+
+
+def emd_descent(device) -> dict:
+    """The JAX package's EMD descent check through the kernels and the plain route."""
+    from hyperpocket_tpu_torch.ops.emd import (
+        _match_cost_bwd_plain,
+        _streaming_cost,
+        match_cost,
+        match_cost_bwd_kernel,
+        match_cost_fwd_kernel,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    x0 = torch.randn((16, 128, 3), generator=gen, device=device) * 0.3
+    target = torch.randn((16, 128, 3), generator=gen, device=device) * 0.3
+    scale = 16 * 128
+
+    def through_kernels(x):  # CUDA tensors: K6 forward, K7 backward
+        x.requires_grad_()
+        loss = match_cost(x, target).sum() / scale
+        return loss, torch.autograd.grad(loss, x)[0]
+
+    def through_plain(x):
+        return (_streaming_cost(x, target).sum() / scale,
+                _match_cost_bwd_plain(x, target)[0] / scale)
+
+    def run(value_and_grad):
+        x, losses = x0.clone(), []
+        for _ in range(10):
+            loss, g = value_and_grad(x)
+            losses.append(loss.item())
+            x = (x - 0.05 * g).detach()
+        return losses
+
+    match_cost_fwd_kernel.launches = match_cost_bwd_kernel.launches = 0
+    kernels = run(through_kernels)
+    launches = {"emd_match_cost": match_cost_fwd_kernel.launches,
+                "emd_match_cost_grad": match_cost_bwd_kernel.launches}
+    plain = run(through_plain)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kernels, plain))
+    print(f"emd descent: losses through the kernels {kernels}, plain {plain}, largest "
+          f"relative difference {rel!r} (limit {DESCENT_RTOL}); launches {launches}")
+    check(all(np.isfinite(kernels)), "non-finite EMD descent loss")
+    check(plain[-1] < plain[0] and kernels[-1] < kernels[0], "the EMD descent did not descend")
+    check(rel <= DESCENT_RTOL, f"EMD descent trajectories differ by {rel} > {DESCENT_RTOL}")
+    check(launches == {"emd_match_cost": 10, "emd_match_cost_grad": 10},
+          f"10 descent steps launched {launches}")
+    return {"kernels": kernels, "plain": plain, "rel": rel, "launches": launches}
+
+
+def _eval_shape(rng, n: int) -> np.ndarray:
+    """A random ellipsoid surface inside the unit sphere, as a completion corpus holds."""
+    pts = rng.standard_normal((n, 3))
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    return (pts * rng.uniform(0.15, 0.45, 3)).astype(np.float32)
+
+
+def write_eval_corpus(name: str, root: Path) -> None:
+    """EVAL_OBJECTS objects of EVAL_CATEGORY in the on-disk layout ``name``'s dataset reads."""
+    from hyperpocket_tpu_torch.data.plyio import save_ply
+
+    rng = np.random.default_rng(SEED + 9)
+    names = [f"smoke{i:03d}" for i in range(EVAL_OBJECTS)]
+    if name == "shapenet":  # MissingShapeNet's gen test split
+        for split in ("train", "val", "test"):
+            (root / f"{split}.list").write_text("".join(f"{EVAL_CATEGORY}/{n}\n" for n in names))
+        for side in ("right", "left", "gt"):
+            (root / "test_gen" / side / EVAL_CATEGORY).mkdir(parents=True)
+        for n in names:
+            gt = _eval_shape(rng, N_OUT)
+            order = np.argsort(gt[:, 1])
+            cut = int(rng.integers(900, 1150))  # existing/missing resampled to 1024
+            save_ply(root / "test_gen" / "left" / EVAL_CATEGORY / f"{n}.ply", gt[order[:cut]])
+            save_ply(root / "test_gen" / "right" / EVAL_CATEGORY / f"{n}.ply", gt[order[cut:]])
+            save_ply(root / "test_gen" / "gt" / EVAL_CATEGORY / f"{n}.ply", gt)
+        return
+    # 3D-EPN's test split: complete clouds and eight z-up partial scans per model
+    (root / "slices" / "gt" / EVAL_CATEGORY).mkdir(parents=True)
+    (root / "ShapeNetPointCloud" / EVAL_CATEGORY).mkdir(parents=True)
+    (root / "shapenet_dim32_sdf_pc" / EVAL_CATEGORY).mkdir(parents=True)
+    rows = ["id,synsetId,modelId,split"]
+    for i, n in enumerate(names):
+        gt = _eval_shape(rng, int(rng.integers(2400, 3600)))
+        save_ply(root / "ShapeNetPointCloud" / EVAL_CATEGORY / f"{n}.ply", gt)
+        for k in range(8):
+            view = rng.standard_normal(3)
+            scan = gt[gt @ view > 0][: int(rng.integers(600, 1400))]
+            zup = scan[:, [2, 1, 0]] * np.float32([-1.0, 1.0, 1.0])  # undone by the axis swap
+            save_ply(root / "shapenet_dim32_sdf_pc" / EVAL_CATEGORY / f"{n}__{k}__.ply", zup)
+        rows.append(f"{i},{EVAL_CATEGORY},{n},test")
+    (root / "shapenet-official-split.csv").write_text("\n".join(rows) + "\n")
+
+
+def drive_experiments(model32, device, tmp: Path) -> dict:
+    """``cli.main`` in experiments mode for the two eval configs, with launch counts."""
+    from hyperpocket_tpu_torch import cli
+    from hyperpocket_tpu_torch.convert import save_jax_npz
+    from hyperpocket_tpu_torch.ops.emd import match_cost_bwd_kernel, match_cost_fwd_kernel
+    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+    from hyperpocket_tpu_torch.train.config import get_results_dir_path
+
+    kernels = {"emd_match_cost": match_cost_fwd_kernel, "emd_match_cost_grad": match_cost_bwd_kernel,
+               "nn_min_fused": nn_min_fused, "nn_one_direction": nn_one_direction,
+               "trunk_pool": trunk_pooled}
+    # JSD's entropy comes from scipy.stats, whose first import is process
+    # set-up of a few seconds; it is timed here on its own, not inside the
+    # first experiment that needs it
+    t0 = time.perf_counter()
+    import scipy.stats  # noqa: F401
+    out = {"scipy_stats_import_s": time.perf_counter() - t0}
+    print(f"experiments: importing scipy.stats took {out['scipy_stats_import_s']!r} s")
+    for cfg_name in EVAL_CONFIGS:
+        config = json.loads((ROOT / "settings" / cfg_name).read_text())
+        data = tmp / cfg_name.removesuffix(".json") / "data"
+        data.mkdir(parents=True)
+        write_eval_corpus(config["dataset"]["name"], data)
+        config["mode"] = "experiments"
+        config["dataset"]["path"] = str(data)
+        config["dataset"]["classes"] = [EVAL_CATEGORY]
+        config["results_root"] = str(data.parent / "results")
+        training = Path(get_results_dir_path(config, "training"))
+        (training / "weights").mkdir(parents=True)
+        (training / "metrics").mkdir(parents=True)
+        save_jax_npz(str(training / "weights" / "00001_model.npz"), model32)
+        np.save(training / "metrics" / "00001_val.npy", np.array([[1.0]]))
+
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        ctx = cli.main(config, device=device)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        results = Path(get_results_dir_path(config, "experiments"))
+        check(ctx.epoch == 1 and ctx.model.compute_dtype == "float32",
+              f"{cfg_name}: restored epoch {ctx.epoch}, compute dtype {ctx.model.compute_dtype}")
+        res = {"wall_s": wall_s, "timings_s": ctx.timings, "launches": launches}
+        if cfg_name == "config_missing_shapenet.json":
+            metrics = json.loads(
+                (results / "evaluate_generativity" / "1eval_gen_by_cat.json").read_text())
+            cat = metrics["chair"]
+            keys = {f"{m}-{t}" for m in ("mmd(Fidelity)", "cov(Coverage)", "mmd_smp")
+                    for t in ("CD", "EMD")} | {"jsd"}
+            check(set(cat) == keys, f"evaluate_generativity keys {sorted(cat)}")
+            check(all(np.isfinite(v) for v in cat.values()), f"non-finite metrics {cat}")
+            # 16 objects x 16 completions x 16 missing halves, at 512 pairs a dispatch
+            dispatches = -(-EVAL_OBJECTS ** 3 // 512)
+            want = {"emd_match_cost": dispatches, "emd_match_cost_grad": 0,
+                    "nn_min_fused": dispatches, "nn_one_direction": 0, "trunk_pool": 0}
+            res["metrics"] = cat
+            res["dispatches"] = dispatches
+        else:
+            metrics = json.loads((results / "compute_mmd_tmd_uhd" / "1res.json").read_text())
+            check(set(metrics) == {"MMD * 1000", "UHD * 100", "TMD * 100"},
+                  f"compute_mmd_tmd_uhd keys {sorted(metrics)}")
+            check(all(np.isfinite(v) for v in metrics.values()), f"non-finite metrics {metrics}")
+            recs = sorted((results / "fixed").glob("*_reconstruction.npy"))
+            check(len(recs) == 10 * EVAL_OBJECTS, f"fixed wrote {len(recs)} reconstructions")
+            check(np.load(recs[0]).shape == (3, N_OUT), f"reconstruction {np.load(recs[0]).shape}")
+            # MMD: 8 gt clouds x 64 completions a call; UHD and TMD one call each
+            mmd_calls = -(-EVAL_OBJECTS // 8) * -(-len(recs) // 64)
+            want = {"emd_match_cost": 0, "emd_match_cost_grad": 0,
+                    "nn_min_fused": mmd_calls + 2, "nn_one_direction": 0, "trunk_pool": 0}
+            res["metrics"] = metrics
+        check(launches == want, f"{cfg_name}: launches {launches}, expected {want}")
+        print(f"experiments {cfg_name}: wall {wall_s!r} s, parts (s) {json.dumps(ctx.timings)}, "
+              f"metrics {json.dumps(res['metrics'])}, launches {launches}")
+        out[cfg_name] = res
+    return out
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -629,6 +929,18 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
         record(f"train_step_{name}_B{TRAIN_BATCH}", run, wall_ms, 3)
         del m, opt, step
         torch.cuda.empty_cache()
+    # one 512-pair CD + EMD dispatch of evaluate_generativity at N=M=1024
+    from hyperpocket_tpu_torch.eval.metrics import _pair_ops
+
+    rows = torch.randn((EVAL_OBJECTS, N_EXISTING, 3), generator=gen, device=device) * 0.3
+    cols = torch.randn((EVAL_OBJECTS ** 2, N_EXISTING, 3), generator=gen, device=device) * 0.3
+    pair = torch.arange(512, device=device)
+
+    def dispatch(s):
+        return _pair_ops(rows, cols, pair % EVAL_OBJECTS, pair // EVAL_OBJECTS)
+
+    wall_ms = step_ms(dispatch, iters=3, windows=1, warmup=1)["ms"]
+    record("pair_ops_512_N1024", dispatch, wall_ms, 1)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(report, indent=1))
     return report
@@ -637,8 +949,8 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None, metavar="PATH",
-                    help="also write the per-kernel device time of serving calls and "
-                         "train steps to PATH")
+                    help="also write the per-kernel device time of serving calls, "
+                         "train steps and one eval pair dispatch to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a GPU",
@@ -671,6 +983,11 @@ def main(argv=None) -> int:
     print(f"chamfer: {json.dumps(cham)}")
     training = drive_training(config, model32, device)
     print(f"training: {json.dumps(training)} on {card}")
+    emd_kern = emd_kernels_vs_plain(device)
+    descent = emd_descent(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        experiments = drive_experiments(model32, device, Path(tmp))
+    print(f"experiments: {json.dumps(experiments)} on {card}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
@@ -699,6 +1016,20 @@ def main(argv=None) -> int:
             "max_abs_err": nn_kern["errs"][name],
             "ms": nn_kern["times"][name]["ms"],
             "plain_ms": nn_kern["times"][name]["plain_ms"],
+        })
+    eval_launches = experiments["config_missing_shapenet.json"]["launches"]
+    for name, line, launches in (
+            ("emd_match_cost", 273, eval_launches["emd_match_cost"]),
+            ("emd_match_cost_grad", 414, descent["launches"]["emd_match_cost_grad"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"hyperpocket_tpu_torch/csrc/{name}.cu",
+            "replaces": f"hyperpocket_tpu/ops/pallas_emd.py:{line}",
+            "launches": launches,
+            "max_abs_err": emd_kern["errs"][name],
+            "ms": emd_kern["times"]["B512_1024"][name]["ms"],
+            "plain_ms": emd_kern["times"]["B512_1024"][name]["plain_ms"],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,12 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
 * ``chamfer_loss_auto``: the JAX package's gate. fp32 clouds whose point
   counts are multiples of 128 take the streaming path; everything else,
   fp64 included, takes ``ops/chamfer.py::chamfer_loss``.
+* the metric dispatchers ``nn_min_dists``, ``chamfer_per_cloud_auto``,
+  ``directed_hausdorff_auto`` (K3) and ``nn_distance_auto`` (K1 twice): the
+  matrix forms of ``ops/chamfer.py`` for CPU clouds, the kernels for CUDA
+  clouds at any point counts (fp32 only; anything else raises). The JAX
+  package's 128-multiple gate fits Mosaic's lane layout, which the CUDA
+  kernels do not have.
 
 Both kernels compute a distance as the TPU kernels do: ``d = 0; for c in
 0..2: diff = k_c - q_c; d += diff * diff``, each step rounded on its own.
@@ -34,7 +40,13 @@ import functools
 import torch
 
 from hyperpocket_tpu_torch.ops._build import library
-from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss, nn_backward
+from hyperpocket_tpu_torch.ops.chamfer import (
+    chamfer_loss,
+    chamfer_per_cloud,
+    directed_hausdorff,
+    nn_backward,
+    nn_distance,
+)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -177,3 +189,66 @@ def chamfer_loss_auto(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     if fp32 and pallas_shapes_ok(gts.shape[1], preds.shape[1]):
         return chamfer_loss_streaming(gts, preds)
     return chamfer_loss(gts, preds)
+
+
+# ---------------------------------------------------------------------------
+# The metric dispatchers of ``pallas_nn.py`` (MMD, UHD, TMD and the CD
+# matrices of the generative metrics): ``ops/chamfer.py``'s matrix forms for
+# CPU clouds, fp64 included; the kernels for anything else, which launch or
+# raise.
+
+
+def _metric_kernels(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return not (a.device.type == "cpu" and b.device.type == "cpu")
+
+
+def nn_min_dists(a: torch.Tensor, b: torch.Tensor):
+    """(dist1 (B, N), dist2 (B, M)): NN squared distances without indices."""
+    if _metric_kernels(a, b):
+        return nn_min_fused(a.contiguous(), b.contiguous())
+    d1, _, d2, _ = nn_distance(a, b)
+    return d1, d2
+
+
+class _NNDistanceKernels(torch.autograd.Function):
+    """``nn_distance`` from K1 twice; backward through the indices (K2)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        dist1, idx1 = nn_one_direction(a, b)
+        dist2, idx2 = nn_one_direction(b, a)
+        ctx.save_for_backward(a, b, idx1, idx2)
+        ctx.mark_non_differentiable(idx1, idx2)
+        return dist1, idx1, dist2, idx2
+
+    @staticmethod
+    def backward(ctx, g1, _gi1, g2, _gi2):
+        a, b, idx1, idx2 = ctx.saved_tensors
+        return nn_backward(a, b, idx1, idx2, g1, g2)
+
+
+def nn_distance_auto(a: torch.Tensor, b: torch.Tensor):
+    """``ops/chamfer.py::nn_distance`` through K1 (twice) where the kernels apply.
+
+    The JAX package's single-pass K5 (``_nn_fused_planes``) is not ported
+    yet; two K1 launches give the same distances and first-argmin indices.
+    """
+    if _metric_kernels(a, b):
+        return _NNDistanceKernels.apply(a.contiguous(), b.contiguous())
+    return nn_distance(a, b)
+
+
+def chamfer_per_cloud_auto(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-cloud Chamfer, the mean of the minima both ways: (B,)."""
+    if _metric_kernels(x, y):
+        d1, d2 = nn_min_fused(x.contiguous(), y.contiguous())
+        return d1.mean(dim=1) + d2.mean(dim=1)
+    return chamfer_per_cloud(x, y)
+
+
+def directed_hausdorff_auto(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``max_i min_j |a_i - b_j|`` per cloud (UHD's inner op): (B,)."""
+    if _metric_kernels(a, b):
+        dist, _ = nn_min_fused(a.contiguous(), b.contiguous())
+        return torch.sqrt(torch.clamp_min(dist, 0.0)).amax(dim=1)
+    return directed_hausdorff(a, b)

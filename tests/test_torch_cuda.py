@@ -159,3 +159,161 @@ def test_nn_kernels_reject_what_they_cannot_take(cuda):
         nn_min_fused(q[:, ::2], k)
     with pytest.raises(ValueError, match="one device"):
         nn_one_direction(q, k.cpu())
+
+
+# K6/K7 (ops/emd.py): costs within rtol 1e-4 (tests/test_pallas_emd.py);
+# gradients within relative L2 1e-4 and every entry within 1e-2 of the
+# tensor's largest: kernel and plain version, both fp32, part by up to 4.0e-3
+# of it at a few entries (B4_2048x1024), where a broken kernel reads 0.26 or
+# more (PERF.md)
+EMD_CASES = {
+    "B8_1024": (8, 1024, 1024),
+    "B4_2048x1024": (4, 2048, 1024),  # budget multiplier 2
+    "B4_1024x2048": (4, 1024, 2048),
+    "B3_300x128": (3, 300, 128),  # multiplier 2 by integer division
+    "ragged_B3_200x136": (3, 200, 136),
+    "B1_512": (1, 512, 512),
+    "coincident_B2_256": (2, 256, 256),  # x == y: the 1e-20 clamp of K7
+}
+
+
+def _emd_case(case: str):
+    b, n, m = EMD_CASES[case]
+    x = _points(b, n, 11)
+    return (x, x.clone()) if case.startswith("coincident") else (x, _points(b, m, 12))
+
+
+def _close_grad(got, want, rel_l2=1e-4, most=1e-2, atol=1e-6):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).norm().item() <= rel_l2 * want.norm().item() + atol
+    assert (got - want).abs().max().item() <= most * want.abs().max().item() + atol
+
+
+@pytest.mark.parametrize("case", list(EMD_CASES))
+def test_emd_match_cost_kernel_matches_reference(cuda, case):
+    from hyperpocket_tpu_torch.ops.emd import match_cost_fwd_kernel, match_cost_fwd_reference
+
+    x, y = _emd_case(case)
+    before = match_cost_fwd_kernel.launches
+    got = match_cost_fwd_kernel(x, y)
+    torch.cuda.synchronize()
+    assert match_cost_fwd_kernel.launches == before + 1
+    want = match_cost_fwd_reference(x, y)
+    assert got.shape == (x.shape[0],) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    assert torch.equal(match_cost_fwd_kernel(x, y), got)  # a fixed summation order
+
+
+@pytest.mark.parametrize("case", list(EMD_CASES))
+def test_emd_match_cost_grad_kernel_matches_reference(cuda, case):
+    from hyperpocket_tpu_torch.ops.emd import match_cost_bwd_kernel, match_cost_bwd_reference
+
+    x, y = _emd_case(case)
+    before = match_cost_bwd_kernel.launches
+    gx, gy = match_cost_bwd_kernel(x, y)
+    torch.cuda.synchronize()
+    assert match_cost_bwd_kernel.launches == before + 1
+    want_x, want_y = match_cost_bwd_reference(x, y)
+    _close_grad(gx, want_x)
+    _close_grad(gy, want_y)
+    again = match_cost_bwd_kernel(x, y)
+    assert torch.equal(again[0], gx) and torch.equal(again[1], gy)
+
+
+def test_emd_descent_kernels_vs_plain(cuda):
+    """tests/test_pallas_emd.py's descent check: K6/K7 against the plain route."""
+    from hyperpocket_tpu_torch.ops.emd import (
+        _match_cost_bwd_plain,
+        _streaming_cost,
+        match_cost,
+        match_cost_bwd_kernel,
+        match_cost_fwd_kernel,
+    )
+
+    x0, target = _points(16, 128, 13), _points(16, 128, 14)
+
+    def through_kernels(x):
+        x.requires_grad_()
+        loss = match_cost(x, target).sum() / (16 * 128)
+        return loss, torch.autograd.grad(loss, x)[0]
+
+    def through_plain(x):
+        return (_streaming_cost(x, target).sum() / (16 * 128),
+                _match_cost_bwd_plain(x, target)[0] / (16 * 128))
+
+    def run(value_and_grad):
+        x, losses = x0.clone(), []
+        for _ in range(10):
+            loss, g = value_and_grad(x)
+            losses.append(loss.item())
+            x = (x - 0.05 * g).detach()
+        return losses
+
+    launches = match_cost_fwd_kernel.launches, match_cost_bwd_kernel.launches
+    kernels = run(through_kernels)
+    assert (match_cost_fwd_kernel.launches - launches[0],
+            match_cost_bwd_kernel.launches - launches[1]) == (10, 10)
+    plain = run(through_plain)
+    assert plain[-1] < plain[0]
+    torch.testing.assert_close(torch.tensor(kernels), torch.tensor(plain), rtol=2e-3, atol=0)
+
+
+def test_emd_kernels_reject_what_they_cannot_take(cuda):
+    from hyperpocket_tpu_torch.ops.emd import match_cost, match_cost_fwd_kernel
+
+    x, y = _points(2, 64, 0), _points(2, 32, 1)
+    with pytest.raises(ValueError, match="fp32"):
+        match_cost_fwd_kernel(x.double(), y.double())
+    with pytest.raises(ValueError, match="one device"):
+        match_cost_fwd_kernel(x, y.cpu())
+    with pytest.raises(ValueError, match="shared memory"):
+        match_cost_fwd_kernel(_points(1, 6000, 2), _points(1, 6000, 3))
+    # match_cost on a card launches the kernels or raises: no plain fallback
+    with pytest.raises(ValueError, match="fp32"):
+        match_cost(x.double(), y.double())
+    with pytest.raises(ValueError, match="one device"):
+        match_cost(x, y.cpu())
+
+
+def test_earth_mover_distance_one_launch_per_batch(cuda):
+    """On a card the whole batch goes to K6 at once (no 300-pair chunks)."""
+    from hyperpocket_tpu_torch.ops.emd import (
+        earth_mover_distance,
+        match_cost_fwd_kernel,
+        match_cost_fwd_reference,
+    )
+
+    x, y = _points(512, 64, 15), _points(512, 64, 16)
+    before = match_cost_fwd_kernel.launches
+    got = earth_mover_distance(x, y)
+    torch.cuda.synchronize()
+    assert match_cost_fwd_kernel.launches == before + 1
+    torch.testing.assert_close(got, match_cost_fwd_reference(x, y) / 64, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 200, 136), (2, 1024, 2048)])
+def test_metric_dispatchers_launch_kernels_at_any_shape(cuda, shape):
+    """fp32 CUDA clouds take K3 / K1 at ragged counts too, and agree with ops/chamfer.py."""
+    from hyperpocket_tpu_torch.ops import chamfer, nn
+
+    b, n, m = shape
+    a, c = _points(b, n, 17), _points(b, m, 18)
+    before = nn.nn_min_fused.launches, nn.nn_one_direction.launches
+    mins = nn.nn_min_dists(a, c)
+    per_cloud = nn.chamfer_per_cloud_auto(a, c)
+    hausdorff = nn.directed_hausdorff_auto(a, c)
+    dist1, idx1, dist2, idx2 = nn.nn_distance_auto(a, c)
+    torch.cuda.synchronize()
+    assert (nn.nn_min_fused.launches - before[0], nn.nn_one_direction.launches - before[1]) == (3, 2)
+    a64, c64 = a.double(), c.double()
+    want1, _, want2, _ = chamfer.nn_distance(a64, c64)
+    for got, want in ((mins[0], want1), (mins[1], want2), (dist1, want1), (dist2, want2),
+                      (per_cloud, chamfer.chamfer_per_cloud(a64, c64)),
+                      (hausdorff, chamfer.directed_hausdorff(a64, c64))):
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-6)
+    assert torch.equal(idx1, nn.nn_one_direction_reference(a, c)[1])
+    assert torch.equal(idx2, nn.nn_one_direction_reference(c, a)[1])
+    for fn in (nn.nn_min_dists, nn.chamfer_per_cloud_auto, nn.directed_hausdorff_auto,
+               nn.nn_distance_auto):
+        with pytest.raises(ValueError, match="fp32"):
+            fn(a.double(), c.double())
