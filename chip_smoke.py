@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and experiments paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, training, experiments and training-CLI paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
@@ -72,14 +72,45 @@ Phases, each fatal on any error:
    ``compute_mmd_tmd_uhd`` must launch K3 as its calls require. The wall time
    of each experiment and of its parts is printed.
 
+12. trunk-argmax kernel K8 vs plain (``ops/trunk_pool.py::trunk_pooled_argmax``)
+   on the served model's encoder at B=64 and B=256 (N=1024), ragged clouds and
+   duplicated points (in one tile and across tiles): pooled values equal to
+   K4's bits and to the maxima of the kernel's own per-point values (K4 on
+   single points), indices the first point reaching them; against the plain
+   version pooled within 2e-2, the plain value at K8's point within 2e-2 of
+   the plain maximum, indices equal where that maximum leads its channel by
+   more than 4e-2, duplicates resolved to the first copy, two launches equal;
+   K8 timed beside K4, the plain version and cuBLAS bf16 + ``torch.max``.
+13. head-Adam kernel K11 vs plain (``ops/head_adam.py``) at the head's shape
+   (19011 x 2048, B=64), bf16 inputs and moments, count 5: p within 2 lr
+   everywhere and within two fp32 steps plus 1e-5 lr on all but 1e-4 of the
+   entries, m and v within one bf16 step; deterministic; timed beside the
+   plain ``torch.mm`` + elementwise Adam.
+14. training through the CLI: a 3D-EPN train corpus of 32 chairs x 4 halves
+   (128 items) the smoke writes, then ``cli.main`` in training mode (or, where
+   matplotlib is missing, ``Trainer.run(plot_samples=False)``) for
+   ``config_3depn_chair.json`` (fp32) and ``config_3depn_chair_fast.json``
+   (bf16, bf16 Adam moments, ``compute_dtype_switch`` at epoch 1,
+   ``HPCD_TRUNK_FUSED_FWD=1``), 2 epochs each, then a relaunch with max_epoch
+   3 that must resume at epoch 3; files written, epoch times and ms per step,
+   launches (K1 twice a train step, K3 once a val batch, K8 twice a bf16 train
+   step, K4 twice a bf16 val batch).
+15. fused train step: 3 steps of ``make_fused_train_step`` (K11 once a step)
+   against ``make_train_step`` at full width, B=64, bf16, from the same
+   weights and draws: step-0 losses within 1e-6, all within 1e-2.
+
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
-B=256 and B=64, one fp32 and one bf16 train step at B=64 and one 512-pair
+B=256 and B=64, one fp32 and one bf16 train step at B=64 (the bf16 one also
+with K8 and with K11's fused head step) and one 512-pair
 CD + EMD dispatch of ``evaluate_generativity`` at N=M=1024, the wall time
 per call and the device time per call by kernel (``torch.profiler``) to
 PATH as JSON.
 
-The line before the last is a JSON object with the kernels' launches on
-their paths, errors and times; the last line is ``{"ok": true, "device":
+The line before the last is a JSON object with, for each kernel, its
+launches on its path, its error against its plain version, its time, the
+plain version's, the least time the card could take (``bound_ms``, from the
+published peaks and this run's shapes) and one PyTorch call's time where one
+computes the same function; the last line is ``{"ok": true, "device":
 {...}}``. Nothing of JAX is imported.
 """
 
@@ -89,6 +120,7 @@ import argparse
 import collections
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -118,6 +150,19 @@ EMD_RTOL = 1e-4  # tests/test_pallas_emd.py: the cost
 # round or a dropped query read 0.26 or more (PERF.md)
 EMD_GRAD_REL_L2, EMD_GRAD_MAX, EMD_GRAD_ATOL = 1e-4, 1e-2, 1e-6
 DESCENT_RTOL = 2e-3  # tests/test_pallas_emd.py::test_emd_descent_parity_pallas_vs_xla
+# K11 vs plain: p within 2 lr everywhere (a near-zero dw may flip the update's
+# sign) and within two fp32 steps of p plus 1e-5 lr on all but 1e-4 of the
+# entries; m and v within one bf16 step plus 1e-6 of the tensor's largest
+# entry (tests/test_torch_cuda.py)
+HEAD_SHARE = 1e-4
+HEAD_N, HEAD_K = 19011, 2048
+FUSED_STEP_RTOL = 1e-2  # bf16 compute: autograd rounds dW to bf16, K11 keeps it fp32
+TRAIN_MODELS, TRAIN_SAMPLES = 32, 4  # 128 train items: 2 steps of B=64 an epoch
+# the H100 SXM's published peaks: HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores and the fp32
+# issue rate (instructions/s, half the FMA-counted FLOP/s)
+HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+FP32_LANE_RATE = FP32_FLOPS / 2
 EVAL_CONFIGS = ("config_missing_shapenet.json", "config_3depn_chair.json")
 EVAL_CATEGORY = "03001627"  # chair: the one category each eval corpus holds
 EVAL_OBJECTS = 16
@@ -156,6 +201,26 @@ def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def bound(bytes_moved: float, op_seconds: float) -> dict:
+    """The least time for the work: the larger of bytes over the HBM rate and
+    the operations' time at their peak rates (``op_seconds``)."""
+    byte_s = bytes_moved / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(byte_s, op_seconds),
+            "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
+
+
+def trunk_bound(batch: int, n: int, out_bytes: int) -> dict:
+    """K4/K8: layers 2-5 on the bf16 tensor cores, layer 1 (K=3) in fp32;
+    x read once, the 0.87 MB of layers once, the outputs written once."""
+    from hyperpocket_tpu_torch.ops.trunk_pool import WIDTHS
+
+    macs = [WIDTHS[i] * WIDTHS[i + 1] for i in range(len(WIDTHS) - 1)]
+    rows = batch * n
+    layer_bytes = 2 * sum(m + WIDTHS[i + 1] for i, m in enumerate(macs))
+    return bound(rows * 3 * 2 + layer_bytes + batch * 512 * out_bytes,
+                 2 * rows * sum(macs[1:]) / BF16_FLOPS + 2 * rows * macs[0] / FP32_FLOPS)
 
 
 def clouds_per_s(fn, batch: int, iters: int = 10, windows: int = 5, warmup: int = 3) -> dict:
@@ -239,11 +304,165 @@ def kernel_vs_plain(served, device) -> dict:
         times[name] = {
             "kernel_ms": cuda_ms(lambda: trunk_pooled(layers, x)),
             "plain_ms": cuda_ms(lambda: trunk_pooled_reference(layers, x), iters=5),
-            # the same five layers as plain bf16 matmuls (cuBLAS) + max, for context
+            # the same five layers as plain bf16 matmuls (cuBLAS) + max
             "bf16_matmul_chain_ms": cuda_ms(lambda: encoder.conv_stack(x).amax(dim=1), iters=10),
+            **trunk_bound(x.shape[0], x.shape[1], 2),
         }
         print(f"trunk timing {name}: {json.dumps(times[name])}")
     return {"max_abs_err": max(errs.values()), "errs": errs, "times": times}
+
+
+def _per_point_values(layers, x):
+    """K4's values at every point of x, (B, N, 512): each point as a cloud of 8
+    copies of itself. A row's values do not depend on the other rows of its
+    tile, so these are the bits K8 compares inside the whole cloud."""
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+
+    b, n = x.shape[:2]
+    return trunk_pooled(layers, x.reshape(b * n, 1, 3).expand(b * n, 8, 3).contiguous()).view(
+        b, n, 512)
+
+
+def trunk_argmax_vs_plain(served, device) -> dict:
+    """K8 vs its plain version on ``served``'s bf16 real encoder.
+
+    Exact checks against the kernel's own per-point values (K4 on single
+    points): K8's pooled values are their maxima (and K4's pooled output),
+    its indices the first point reaching them. Against the plain version
+    (another summation order): pooled within KERNEL_ATOL, the plain value at
+    K8's point within KERNEL_ATOL of the plain maximum, indices equal where
+    the plain maximum leads its channel by more than 2 KERNEL_ATOL.
+    """
+    from hyperpocket_tpu_torch.ops.trunk_pool import (
+        _stack_reference,
+        trunk_pooled,
+        trunk_pooled_argmax,
+        trunk_pooled_argmax_reference,
+    )
+
+    bf16 = torch.bfloat16
+    encoder = served.real_encoder
+    layers = [(l.weight, l.bias) for l in encoder.conv]
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+
+    def cloud(b, n):
+        return (torch.randn((b, n, 3), generator=gen, device=device) * 0.3).to(bf16)
+
+    dup64, dup200 = cloud(2, 64), cloud(2, 200)
+    cases = {
+        "B64_N1024": cloud(TRAIN_BATCH, N_EXISTING),  # the training shape
+        "B256_N1024": cloud(BENCH_BATCH, N_EXISTING),
+        "B3_N200": cloud(3, 200),
+        # every point twice: in one tile (64 apart) and across tiles (200 apart)
+        "dup_B2_N128": torch.cat([dup64, dup64], dim=1).contiguous(),
+        "dup_B2_N400": torch.cat([dup200, dup200], dim=1).contiguous(),
+    }
+    out = {"cases": {}}
+    err = 0.0
+    for name, x in cases.items():
+        pooled, idx = trunk_pooled_argmax(layers, x)
+        torch.cuda.synchronize()
+        again = trunk_pooled_argmax(layers, x)
+        check(torch.equal(again[0], pooled) and torch.equal(again[1], idx),
+              f"{name}: K8 is not deterministic")
+        check(pooled.shape == idx.shape == (x.shape[0], 512) and idx.dtype == torch.int32,
+              f"{name}: K8 output {tuple(pooled.shape)} {idx.dtype}")
+        check(torch.equal(pooled, trunk_pooled(layers, x)), f"{name}: K8 pooled differs from K4")
+        own_max, own_idx = torch.max(_per_point_values(layers, x).float(), dim=1)
+        check(torch.equal(pooled.float(), own_max), f"{name}: K8 pooled is not the kernel's max")
+        wrong = int((idx != own_idx.int()).sum())
+        check(wrong == 0, f"{name}: {wrong} K8 indices are not the first of the kernel's maxima")
+        stack = _stack_reference(layers, x).float()
+        want_max, want_idx = torch.max(stack, dim=1)
+        top2 = stack.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * KERNEL_ATOL
+        at_idx = torch.gather(stack, 1, idx.long()[:, None, :])[:, 0]
+        del stack
+        res = {"max_abs_err": (pooled.float() - want_max).abs().max().item(),
+               "plain_gap_at_kernel_index": (want_max - at_idx).max().item(),
+               "index_equal_share": (idx == want_idx.int()).float().mean().item(),
+               "clear_channels": int(clear.sum()), "channels": clear.numel()}
+        print(f"K8 vs plain {name}: {json.dumps(res)}")
+        check(res["max_abs_err"] <= KERNEL_ATOL, f"{name}: K8 pooled error {res['max_abs_err']}")
+        check(res["plain_gap_at_kernel_index"] <= KERNEL_ATOL,
+              f"{name}: K8's point is {res['plain_gap_at_kernel_index']} below the plain maximum")
+        check(torch.equal(idx[clear], want_idx[clear].int()),
+              f"{name}: K8 and plain indices differ where the maximum is clear")
+        if name.startswith("dup"):
+            check(int(idx.max()) < x.shape[1] // 2, f"{name}: a duplicate did not go to the first")
+        err = max(err, res["max_abs_err"])
+        out["cases"][name] = res
+    out["max_abs_err"] = err
+    out["times"] = {}
+    for name in ("B64_N1024", "B256_N1024"):
+        x = cases[name]
+        t = {
+            "ms": cuda_ms(lambda: trunk_pooled_argmax(layers, x)),
+            "k4_ms": cuda_ms(lambda: trunk_pooled(layers, x)),
+            "plain_ms": cuda_ms(lambda: trunk_pooled_argmax_reference(layers, x), iters=5),
+            # the same five layers as cuBLAS bf16 matmuls + torch.max over points
+            "library_ms": cuda_ms(lambda: torch.max(encoder.conv_stack(x), dim=1), iters=10),
+            **trunk_bound(x.shape[0], x.shape[1], 2 + 4),
+        }
+        out["times"][name] = t
+        print(f"K8 timing {name}: {json.dumps(t)}")
+    return out
+
+
+def head_adam_vs_plain(device) -> dict:
+    """K11 vs its plain version at the head's shape, bf16 moments, count 5."""
+    from hyperpocket_tpu_torch.ops.head_adam import (
+        adam_scalars,
+        head_adam_update,
+        head_adam_update_reference,
+    )
+
+    lr = 1e-4  # the chair configs' Adam
+    sc = adam_scalars(lr, 0.9, 0.999, 1e-8, 5)
+
+    def state(seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        h = torch.relu(torch.randn((TRAIN_BATCH, HEAD_K), generator=g, device=device))
+        dout = torch.randn((TRAIN_BATCH, HEAD_N), generator=g, device=device) * 1e-2
+        p = torch.randn((HEAD_N, HEAD_K), generator=g, device=device) * 0.02
+        m = (torch.randn((HEAD_N, HEAD_K), generator=g, device=device) * 1e-3).to(torch.bfloat16)
+        v = (torch.rand((HEAD_N, HEAD_K), generator=g, device=device) * 1e-5).to(torch.bfloat16)
+        return h.to(torch.bfloat16), dout.to(torch.bfloat16), p, m, v
+
+    h, dout, p, m, v = state(SEED + 11)
+    want = head_adam_update_reference(h, dout, p.clone(), m.clone(), v.clone(), sc)
+    head_adam_update(h, dout, p, m, v, sc)
+    torch.cuda.synchronize()
+    again = state(SEED + 11)
+    head_adam_update(*again, sc)
+    check(all(torch.equal(a, b) for a, b in zip(again[2:], (p, m, v))),
+          "K11 is not deterministic")
+    err = (p - want[0]).abs()
+    tight = 2 * torch.finfo(torch.float32).eps * want[0].abs() + 1e-5 * lr
+    res = {"max_abs_err": err.max().item(), "lr": lr,
+           "share_beyond_tight": (err > tight).float().mean().item()}
+    for name, got, ref in (("m", m, want[1]), ("v", v, want[2])):
+        ref = ref.float()
+        step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        diff = (got.float() - ref).abs()
+        res[f"{name}_beyond_one_step"] = int((diff > step + 1e-6 * ref.abs().max()).sum())
+        res[f"{name}_max_abs_err"] = diff.max().item()
+    print(f"K11 vs plain N={HEAD_N} K={HEAD_K} B={TRAIN_BATCH}: {json.dumps(res)}")
+    check(bool(torch.isfinite(p).all()), "K11: non-finite weights")
+    check(res["max_abs_err"] <= 2 * lr, f"K11: p off by {res['max_abs_err']} > 2 lr")
+    check(res["share_beyond_tight"] <= HEAD_SHARE,
+          f"K11: {res['share_beyond_tight']} of p beyond the tight bound")
+    check(res["m_beyond_one_step"] == 0 and res["v_beyond_one_step"] == 0,
+          f"K11: moments beyond one bf16 step: {res['m_beyond_one_step']}, "
+          f"{res['v_beyond_one_step']}")
+    entries = HEAD_N * HEAD_K
+    bytes_moved = entries * (4 + 2 + 2) * 2 + (h.numel() + dout.numel()) * 2
+    t = {"ms": cuda_ms(lambda: head_adam_update(h, dout, p, m, v, sc)),
+         "plain_ms": cuda_ms(lambda: head_adam_update_reference(h, dout, p, m, v, sc), iters=5),
+         "library_ms": None,  # no one PyTorch call forms dW and applies Adam
+         **bound(bytes_moved, 2 * TRAIN_BATCH * entries / FP32_FLOPS)}
+    print(f"K11 timing: {json.dumps(t)}")
+    return {**res, "times": t}
 
 
 def write_checkpoint(config: dict, model, tmp: Path) -> Path:
@@ -406,12 +625,28 @@ def nn_kernels_vs_plain(device) -> dict:
         print(f"nn kernels vs plain {name}: K1 indices equal, K1/K3 max_abs_err "
               f"{errs['nn_one_direction']!r} / {err!r}")
     q, k = cases["B64_2048"]
+
+    def sqdist():  # one PyTorch call for the distances, without the |x|^2+|y|^2-2xy expansion
+        return torch.cdist(q, k, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+
+    def library_k3():
+        d = sqdist()
+        return d.min(dim=2).values, d.min(dim=1).values
+
+    # each (query, key) pair: 3 subtractions, 3 multiplications and 2 additions,
+    # then a compare and a select (K1: min and index; K3: two minima), all
+    # issued one instruction a lane; the reads are a few MB
+    pair_bound = bound(4 * (q.numel() + k.numel()) + 8 * q.shape[0] * q.shape[1],
+                       10 * q.shape[0] * q.shape[1] * k.shape[1] / FP32_LANE_RATE)
     times = {
         "nn_one_direction": {"ms": cuda_ms(lambda: nn_one_direction(q, k)),
                              "plain_ms": cuda_ms(lambda: nn_one_direction_reference(q, k),
-                                                 iters=3)},
+                                                 iters=3),
+                             "library_ms": cuda_ms(lambda: sqdist().min(dim=2), iters=3),
+                             **pair_bound},
         "nn_min_fused": {"ms": cuda_ms(lambda: nn_min_fused(q, k)),
-                         "plain_ms": cuda_ms(lambda: nn_min_fused_reference(q, k), iters=3)},
+                         "plain_ms": cuda_ms(lambda: nn_min_fused_reference(q, k), iters=3),
+                         "library_ms": cuda_ms(library_k3, iters=3), **pair_bound},
     }
     print(f"nn kernel timing B=64 N=M=2048: {json.dumps(times)}")
     return {"errs": errs, "times": times}
@@ -692,6 +927,14 @@ def emd_kernels_vs_plain(device) -> dict:
                 "plain_ms": cuda_ms(lambda: match_cost_bwd_reference(x, y), iters=1, windows=3,
                                     warmup=1)},
         }
+        # 27 sweeps (K6) or 36 (K7) over every (query, key) pair of each pair of
+        # clouds, ~20 issued instructions an element (PERF.md §6); no one
+        # PyTorch call computes approxmatch
+        elements = x.shape[0] * x.shape[1] * y.shape[1]
+        for name_k, sweeps in (("emd_match_cost", 27), ("emd_match_cost_grad", 36)):
+            t[name_k].update(library_ms=None,
+                             **bound(4 * (x.numel() + y.numel()),
+                                     sweeps * 20 * elements / FP32_LANE_RATE))
         for v in t.values():
             v["ms_per_pair"] = v["ms"] / x.shape[0]
             v["plain_ms_per_pair"] = v["plain_ms"] / x.shape[0]
@@ -870,6 +1113,210 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
     return out
 
 
+def write_train_corpus(root: Path) -> None:
+    """A 3D-EPN train tree of TRAIN_MODELS chairs: ``slices/gt`` (2048 points)
+    and TRAIN_SAMPLES existing/missing halves of 1024 points each, cut by a
+    random plane, as the slicer writes them; the split CSV labels every
+    model ``train`` (3D-EPN's val split lists the same slices)."""
+    from hyperpocket_tpu_torch.data.plyio import save_ply
+
+    rng = np.random.default_rng(SEED + 12)
+    for kind in ("gt", "existing", "missing"):
+        (root / "slices" / kind / EVAL_CATEGORY).mkdir(parents=True)
+    rows = ["id,synsetId,modelId,split"]
+    for i in range(TRAIN_MODELS):
+        name = f"train{i:03d}"
+        gt = _eval_shape(rng, N_OUT)
+        save_ply(root / "slices" / "gt" / EVAL_CATEGORY / f"{name}.ply", gt)
+        for k in range(TRAIN_SAMPLES):
+            side = gt @ rng.standard_normal(3) > 0
+            for kind, part in (("existing", gt[side]), ("missing", gt[~side])):
+                pick = rng.choice(len(part), N_EXISTING, replace=len(part) < N_EXISTING)
+                save_ply(root / "slices" / kind / EVAL_CATEGORY / f"{k}~{name}.ply", part[pick])
+        rows.append(f"{i},{EVAL_CATEGORY},{name},train")
+    (root / "shapenet-official-split.csv").write_text("\n".join(rows) + "\n")
+
+
+def drive_cli_training(device, tmp: Path) -> dict:
+    """``cli.main`` in training mode for the two chair configs, then a resume.
+
+    Overrides: ``dataset.path`` (the corpus above), ``results_root``,
+    ``training.max_epoch`` 2, ``min_save_epoch`` 0 and
+    ``state_save_frequency`` 1 (so that 2 epochs save), and for the fast
+    config ``compute_dtype_switch.epoch`` 1 (epoch 2 crosses to fp32) and
+    ``HPCD_TRUNK_FUSED_FWD=1`` for its runs only. A relaunch with
+    ``max_epoch`` 3 must resume at epoch 3. The model is never cut.
+    """
+    import importlib.util
+
+    from hyperpocket_tpu_torch import cli
+    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
+    from hyperpocket_tpu_torch.train import trainer as trainer_mod
+
+    kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
+               "trunk_pool": trunk_pooled, "trunk_pool_argmax": trunk_pooled_argmax}
+    data = tmp / "train_data"
+    t0 = time.perf_counter()
+    write_train_corpus(data)
+    out = {"corpus_s": time.perf_counter() - t0}
+    # the CLI plots samples with matplotlib; where it is missing, the Trainer's
+    # own call without plots (the JAX package's tests' call) drives the path
+    plots = importlib.util.find_spec("matplotlib") is not None
+    out["entry"] = "cli.main" if plots else "Trainer.run(plot_samples=False)"
+    print(f"training: driven through {out['entry']}")
+
+    epoch_s: list = []
+    inner = trainer_mod.Trainer.train_epoch
+
+    def timed(self, epoch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = inner(self, epoch)
+        torch.cuda.synchronize()
+        epoch_s.append((epoch, time.perf_counter() - t, len(self.last_step_losses)))
+        return res
+
+    trainer_mod.Trainer.train_epoch = timed
+    try:
+        for cfg_name, fused in (("config_3depn_chair.json", False),
+                                ("config_3depn_chair_fast.json", True)):
+            config = json.loads((ROOT / "settings" / cfg_name).read_text())
+            config["dataset"]["path"] = str(data)
+            config["results_root"] = str(tmp / cfg_name.removesuffix(".json"))
+            tr = config["training"]
+            tr.update(max_epoch=2, min_save_epoch=0, state_save_frequency=1)
+            if "compute_dtype_switch" in tr:
+                tr["compute_dtype_switch"]["epoch"] = 1
+            res = {"runs": []}
+            for max_epoch in (2, 3):
+                tr["max_epoch"] = max_epoch
+                for k in kernels.values():
+                    k.launches = 0
+                epoch_s.clear()
+                if fused:
+                    os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+                try:
+                    t = time.perf_counter()
+                    if plots:
+                        trainer = cli.main(config, device=device)
+                    else:
+                        trainer = trainer_mod.Trainer(config, device=device)
+                        trainer.run(plot_samples=False)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                finally:
+                    os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+                launches = {name: k.launches for name, k in kernels.items()}
+                run = {"max_epoch": max_epoch, "start_epoch": trainer.start_epoch, "wall_s": wall,
+                       "epochs": [{"epoch": e, "s": s_, "steps": n, "ms_per_step": 1e3 * s_ / n}
+                                  for e, s_, n in epoch_s],
+                       "train_losses": [list(map(float, r)) for r in trainer.train_losses],
+                       "val_losses": [float(np.asarray(v).ravel()[0]) for v in trainer.val_losses],
+                       "compute_dtype": trainer.model.compute_dtype, "launches": launches}
+                print(f"training {cfg_name} max_epoch {max_epoch}: {json.dumps(run)}")
+                epochs = list(range(trainer.start_epoch, max_epoch + 1))
+                check(trainer.start_epoch == (1 if max_epoch == 2 else 3),
+                      f"{cfg_name}: started at epoch {trainer.start_epoch}")
+                check(len(trainer.train_losses) == max_epoch
+                      and all(np.isfinite(r).all() for r in trainer.train_losses)
+                      and all(np.isfinite(v).all() for v in trainer.val_losses),
+                      f"{cfg_name}: losses {run['train_losses']} {run['val_losses']}")
+                steps = [n for _, _, n in epoch_s]
+                check(steps == [TRAIN_MODELS * TRAIN_SAMPLES // TRAIN_BATCH] * len(epochs),
+                      f"{cfg_name}: steps per epoch {steps}")
+                bf16_epochs = [e for e in epochs if fused and e <= 1]
+                val_batches = -(-TRAIN_MODELS * TRAIN_SAMPLES // VAL_BATCH)
+                want = {"nn_one_direction": 2 * sum(steps),
+                        "nn_min_fused": val_batches * len(epochs),
+                        "trunk_pool": 2 * val_batches * len(bf16_epochs),
+                        "trunk_pool_argmax": 2 * steps[0] * len(bf16_epochs)}
+                check(launches == want, f"{cfg_name}: launches {launches}, expected {want}")
+                check(trainer.model.compute_dtype == "float32",
+                      f"{cfg_name}: ends in {trainer.model.compute_dtype}")
+                weights = Path(trainer.weights_path)
+                for e in range(1, max_epoch + 1):
+                    for suffix in ("model.npz", "O.npz", "S.json"):
+                        check((weights / f"{e:05}_{suffix}").exists(),
+                              f"{cfg_name}: {e:05}_{suffix} missing")
+                    for name in ("train", "val"):
+                        check((Path(trainer.metrics_path) / f"{e:05}_{name}.npy").exists(),
+                              f"{cfg_name}: metrics {e:05}_{name}.npy missing")
+                check((Path(trainer.result_dir) / "last_config.json").exists()
+                      and (Path(trainer.result_dir) / "log.txt").exists(),
+                      f"{cfg_name}: last_config.json or log.txt missing")
+                with np.load(weights / f"{max_epoch:05}_O.npz") as o:
+                    run["opt_leaves"] = len(o.files)
+                    moments = o["arr_3"].dtype.str
+                check(moments == ("|V2" if fused else "<f4"),
+                      f"{cfg_name}: moments stored as {moments}")
+                res["runs"].append(run)
+            out[cfg_name] = res
+    finally:
+        trainer_mod.Trainer.train_epoch = inner
+        # the fast config's matmul_precision "high" turned TF32 on for the process
+        trainer_mod.set_matmul_precision("highest")
+    return out
+
+
+def fused_train_step(config: dict, model32, device) -> dict:
+    """3 steps of ``make_fused_train_step`` (K11 on the head) against
+    ``make_train_step`` at full width, B=64, bf16 compute, from the same start
+    and draws; the head's moments are fp32, as the optimizer's."""
+    from hyperpocket_tpu_torch.ops.head_adam import head_adam_update
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    tr = config["training"]
+    loss_coef = float(tr["loss_coef"])
+    batch = None
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    runs = {}
+    for fused in (False, True):
+        model = copy.deepcopy(model32)
+        model.compute_dtype = "bfloat16"
+        model = model.to(device)
+        if batch is None:
+            batch = train_batch(model, TRAIN_BATCH, SEED + 14, device)
+            balls = [generate_target_network_input_batch(model.target_network_input, gen, 1.0,
+                                                         TRAIN_BATCH, N_OUT) for _ in range(3)]
+            eps = [torch.randn((TRAIN_BATCH, model.get_noise_size()), generator=gen,
+                               device=device) for _ in range(3)]
+        w = model.hyper_network.heads.weight
+        params = [p for p in optim.trainable_parameters(model) if not (fused and p is w)]
+        opt = optim.make_optimizer(tr["optimizer"], params)
+        if fused:
+            head = trainer.init_head_adam_state(model, "float32")
+            inner = trainer.make_fused_train_step(model, opt, loss_coef)
+            step = lambda *a, **k: inner(head, *a, **k)  # noqa: E731
+            head_adam_update.launches = 0
+        else:
+            step = trainer.make_train_step(model, opt, loss_coef)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(3):
+            loss, *_ = step(batch["existing"], batch["missing"], batch["gt"], None, 1.0, N_OUT,
+                            vae_eps=eps[i], ball_points=balls[i])
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        runs["fused" if fused else "plain"] = {"losses": losses,
+                                               "s": time.perf_counter() - t0,
+                                               "head_w": w.detach().clone()}
+        if fused:
+            runs["fused"]["launches"] = head_adam_update.launches
+        del model, opt
+    fw, pw = runs["fused"].pop("head_w"), runs["plain"].pop("head_w")
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["fused"]["losses"], runs["plain"]["losses"])]
+    res = {**runs, "loss_rel": rel, "head_w_max_abs_diff": (fw - pw).abs().max().item()}
+    del fw, pw
+    torch.cuda.empty_cache()
+    print(f"fused train step bf16 B={TRAIN_BATCH}: {json.dumps(res)}")
+    check(rel[0] <= 1e-6, f"fused step: step-0 losses differ by {rel[0]}")
+    check(max(rel) <= FUSED_STEP_RTOL, f"fused step: losses part by {max(rel)}")
+    check(runs["fused"]["launches"] == 3, f"fused step: K11 launched {runs['fused']['launches']}")
+    return res
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -914,19 +1361,35 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
             record(f"{name}_B{batch}", lambda s: f(existing, noise, s), wall_ms, calls)
 
     tr = config["training"]
-    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+    # bf16 also with K8 (HPCD_TRUNK_FUSED_FWD=1) and with K11 (the fused head step)
+    for name, dtype, fused_fwd, fused_head in (
+            ("fp32", "float32", False, False), ("bf16", "bfloat16", False, False),
+            ("bf16_fused_fwd", "bfloat16", True, False),
+            ("bf16_fused_head", "bfloat16", False, True)):
         m = copy.deepcopy(model32)
         m.compute_dtype = dtype
         m = m.to(device)
-        opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(m))
-        step = trainer.make_train_step(m, opt, float(tr["loss_coef"]))
+        w = m.hyper_network.heads.weight
+        params = [p for p in optim.trainable_parameters(m) if not (fused_head and p is w)]
+        opt = optim.make_optimizer(tr["optimizer"], params)
+        if fused_head:
+            head = trainer.init_head_adam_state(m, "float32")
+            inner = trainer.make_fused_train_step(m, opt, float(tr["loss_coef"]))
+            step = lambda *a: inner(head, *a)  # noqa: E731
+        else:
+            step = trainer.make_train_step(m, opt, float(tr["loss_coef"]))
         batch = train_batch(m, TRAIN_BATCH, SEED + 6, device)
 
         def run(s):
             return step(batch["existing"], batch["missing"], batch["gt"], gen, 1.0, N_OUT)
 
-        wall_ms = step_ms(run, iters=10, windows=1)["ms"]
-        record(f"train_step_{name}_B{TRAIN_BATCH}", run, wall_ms, 3)
+        if fused_fwd:
+            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+        try:
+            wall_ms = step_ms(run, iters=10, windows=1)["ms"]
+            record(f"train_step_{name}_B{TRAIN_BATCH}", run, wall_ms, 3)
+        finally:
+            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
         del m, opt, step
         torch.cuda.empty_cache()
     # one 512-pair CD + EMD dispatch of evaluate_generativity at N=M=1024
@@ -972,7 +1435,12 @@ def main(argv=None) -> int:
     model32 = copy.deepcopy(model)
     model32.compute_dtype = "float32"
 
-    kern = kernel_vs_plain(model.serving_params().to(device), device)
+    served = model.serving_params().to(device)
+    kern = kernel_vs_plain(served, device)
+    argmax = trunk_argmax_vs_plain(served, device)
+    del served
+    head = head_adam_vs_plain(device)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         sl = drive_slice(config, model, model32, device, Path(tmp))
     print(f"slice: {json.dumps(sl)}")
@@ -988,49 +1456,43 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         experiments = drive_experiments(model32, device, Path(tmp))
     print(f"experiments: {json.dumps(experiments)} on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_training = drive_cli_training(device, Path(tmp))
+    print(f"cli training: {json.dumps(cli_training)} on {card}")
+    fused = fused_train_step(config, model32, device)
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
 
-    t256 = kern["times"]["B256_N1024"]
+    def entry(name, source, replaces, launches, max_abs_err, t, ms_key="ms",
+              library_key="library_ms"):
+        return {"name": name, "route": "cuda", "source": f"hyperpocket_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
+                "ms": t[ms_key], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t[library_key]}
+
     fp32 = training["float32"]
-    kernels = [{
-        "name": "trunk_pool",
-        "route": "cuda",
-        "source": "hyperpocket_tpu_torch/csrc/trunk_pool.cu",
-        "replaces": "hyperpocket_tpu/ops/pallas_encoder.py:198",
-        "launches": sl["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": t256["kernel_ms"],
-        "plain_ms": t256["plain_ms"],
-    }]
-    for name, line, launches in (
-            ("nn_one_direction", 125, fp32["train_launches"]["nn_one_direction"]),
-            ("nn_min_fused", 223, fp32["val_launches"]["nn_min_fused"])):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"hyperpocket_tpu_torch/csrc/{name}.cu",
-            "replaces": f"hyperpocket_tpu/ops/pallas_nn.py:{line}",
-            "launches": launches,
-            "max_abs_err": nn_kern["errs"][name],
-            "ms": nn_kern["times"][name]["ms"],
-            "plain_ms": nn_kern["times"][name]["plain_ms"],
-        })
+    fast = cli_training["config_3depn_chair_fast.json"]["runs"][0]["launches"]
     eval_launches = experiments["config_missing_shapenet.json"]["launches"]
-    for name, line, launches in (
-            ("emd_match_cost", 273, eval_launches["emd_match_cost"]),
-            ("emd_match_cost_grad", 414, descent["launches"]["emd_match_cost_grad"])):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"hyperpocket_tpu_torch/csrc/{name}.cu",
-            "replaces": f"hyperpocket_tpu/ops/pallas_emd.py:{line}",
-            "launches": launches,
-            "max_abs_err": emd_kern["errs"][name],
-            "ms": emd_kern["times"]["B512_1024"][name]["ms"],
-            "plain_ms": emd_kern["times"]["B512_1024"][name]["plain_ms"],
-        })
+    kernels = [
+        entry("trunk_pool", "trunk_pool.cu", "hyperpocket_tpu/ops/pallas_encoder.py:198",
+              sl["launches"], kern["max_abs_err"], kern["times"]["B256_N1024"],
+              ms_key="kernel_ms", library_key="bf16_matmul_chain_ms"),
+        *(entry(name, f"{name}.cu", f"hyperpocket_tpu/ops/pallas_nn.py:{line}", launches,
+                nn_kern["errs"][name], nn_kern["times"][name])
+          for name, line, launches in (
+              ("nn_one_direction", 125, fp32["train_launches"]["nn_one_direction"]),
+              ("nn_min_fused", 223, fp32["val_launches"]["nn_min_fused"]))),
+        *(entry(name, f"{name}.cu", f"hyperpocket_tpu/ops/pallas_emd.py:{line}", launches,
+                emd_kern["errs"][name], emd_kern["times"]["B512_1024"][name])
+          for name, line, launches in (
+              ("emd_match_cost", 273, eval_launches["emd_match_cost"]),
+              ("emd_match_cost_grad", 414, descent["launches"]["emd_match_cost_grad"]))),
+        entry("trunk_pool_argmax", "trunk_pool.cu", "hyperpocket_tpu/ops/pallas_encoder.py:279",
+              fast["trunk_pool_argmax"], argmax["max_abs_err"], argmax["times"]["B64_N1024"]),
+        entry("head_adam", "head_adam.cu", "hyperpocket_tpu/ops/pallas_head_adam.py:88",
+              fused["fused"]["launches"], head["max_abs_err"], head["times"]),
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

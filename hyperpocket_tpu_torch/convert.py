@@ -116,13 +116,17 @@ def load_jax_npz(path: str, model: FullModel) -> FullModel:
             want = tuple(_jax_layout(name, state[name]).shape)
             if arr.shape != want:
                 raise ValueError(f"{path}: leaf {i} ({name}) shape {arr.shape}, expected {want}")
-            loaded[name] = torch.tensor(_jax_layout(name, arr.astype(np.float32)))
+            loaded[name] = torch.tensor(_jax_layout(name, arr))  # cast on load_state_dict
     model.load_state_dict(loaded)
     return model
 
 
+def jax_leaves(model: FullModel) -> list[torch.Tensor]:
+    """The model's parameters in the JAX leaf order and layout, on their device."""
+    state = model.state_dict()
+    return [_jax_layout(n, state[n].detach()) for n in jax_leaf_names(model)]
+
+
 def save_jax_npz(path: str, model: FullModel) -> None:
     """Write ``model``'s fp32 parameters as a JAX positional checkpoint."""
-    state = model.state_dict()
-    leaves = [_jax_layout(n, state[n].detach().float().cpu().numpy()) for n in jax_leaf_names(model)]
-    np.savez(path, *[np.ascontiguousarray(a) for a in leaves])
+    np.savez(path, *[np.ascontiguousarray(t.float().cpu().numpy()) for t in jax_leaves(model)])

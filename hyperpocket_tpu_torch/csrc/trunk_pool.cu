@@ -1,7 +1,11 @@
-// Fused PointNet trunk + global max-pool for Hopper (sm_90a), bf16 inference.
+// Fused PointNet trunk + global max-pool for Hopper (sm_90a), bf16: K4, the
+// inference trunk, and K8, the training forward that also returns the
+// pool's first argmax.
 //
-// Replaces the TPU kernel hyperpocket_tpu/ops/pallas_encoder.py::trunk_pooled
-// (_trunk_pool_kernel, _trunk_pool_kernel_grouped). It computes, per cloud,
+// K4 replaces the TPU kernel hyperpocket_tpu/ops/pallas_encoder.py::trunk_pooled
+// (_trunk_pool_kernel, _trunk_pool_kernel_grouped); K8 replaces
+// pallas_encoder.py::trunk_pooled_argmax (_trunk_pool_argmax_kernel[_grouped]).
+// Both compute, per cloud,
 //   max over points of  L5(relu(L4(relu(L3(relu(L2(relu(L1(x)))))))))
 // with widths 3 -> 64 -> 128 -> 256 -> 512 -> 512 and the TPU kernel's
 // numerics: layer 1 is three fp32 multiply-adds starting from the bias,
@@ -31,6 +35,20 @@
 //     (ordered-int trick) into an fp32 (B, 512) buffer set to -inf first;
 //     max is order-independent, so the result is deterministic.
 // Rows past N in the last tile are computed but never enter the max.
+//
+// K8 is the same kernel with another epilogue (a template parameter, so the
+// layer chain is shared and K4's code is unchanged). Its values are bf16,
+// so equal maxima across points are common, and the index must be the
+// first, as torch.max and the sparse max-pool backward route ties:
+//   * within a tile, each lane scans its rows in increasing order with a
+//     strict >, and lanes merge (max, smallest row where equal);
+//   * across the tiles of a cloud, one 64-bit atomicMax per column on
+//     (ordered bits of the value << 32) | (0xFFFFFFFF - row): the larger
+//     value wins, then the smaller row. -0.0 is stored as +0.0 first, so
+//     the two zeros tie as they do in torch.max. The key buffer starts at 0,
+//     below every real value's key; a last kernel unpacks value and row.
+// K8 moves 8 more bytes per (cloud, column) and keeps a row index beside
+// each running max: its bound is K4's.
 // On an H100 80GB HBM3 at its 700 W limit this kernel took 0.91 ms at B=256,
 // N=1024, against 1.04 ms for the same layers as cuBLAS bf16 matmuls plus a
 // max, and 1.33 ms for the same tiling through the WMMA API (PERF.md).
@@ -69,6 +87,17 @@ struct Layers {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// The float's bits as an unsigned key that orders like the float
+// (-0.0 and +0.0 map to one key), and back.
+__device__ __forceinline__ unsigned ordered_bits(float v) {
+  const unsigned u = __float_as_uint(v + 0.0f);  // -0.0 + 0.0 == +0.0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered_bits(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 // Float max through integer atomics: non-negative floats order like signed
@@ -178,11 +207,23 @@ __device__ void dense_relu(const bf16* in_s, int ld_in, int k_dim,
   }
 }
 
+// (value, row) pairs: the larger value, then the smaller row.
+__device__ __forceinline__ void take_first_max(float& m, int& r, float v, int row) {
+  if (v > m || (v == m && row < r)) {
+    m = v;
+    r = row;
+  }
+}
+
 // The last layer (no ReLU): the product, then the column max over the
-// tile's valid rows, merged across tiles into pooled (fp32, set to -inf).
+// tile's valid rows, merged across tiles. K4 (kArgmax false) merges into
+// pooled (fp32, set to -inf); K8 merges (max, first row) keys into keys
+// (set to 0), with row0 the tile's first row in the cloud.
+template <bool kArgmax>
 __device__ void dense_max(const bf16* in_s, int ld_in, int k_dim,
                           const bf16* __restrict__ w, const bf16* __restrict__ b,
-                          float* __restrict__ pooled, int valid_rows, int warp, int lane) {
+                          float* __restrict__ pooled, unsigned long long* __restrict__ keys,
+                          int row0, int valid_rows, int warp, int lane) {
   for (int nf = warp; nf < kOut / kStrip; nf += kWarps) {
     float acc[kMT][kNT][4];
     strip_product(acc, in_s, ld_in, k_dim, w, nf * kStrip, lane);
@@ -192,35 +233,70 @@ __device__ void dense_max(const bf16* in_s, int ld_in, int k_dim,
       const float b0 = __bfloat162float(b[c]);
       const float b1 = __bfloat162float(b[c + 1]);
       float m0 = -INFINITY, m1 = -INFINITY;
+      int r0 = kTile, r1 = kTile;  // past every row: any valid row replaces it
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
+        // rows i*16 + lane/4 then i*16 + lane/4 + 8: increasing, so a strict >
+        // keeps the first of equal values
         const int r = i * 16 + (lane >> 2);
         if (r < valid_rows) {
-          m0 = fmaxf(m0, round_bf16(acc[i][j][0] + b0));
-          m1 = fmaxf(m1, round_bf16(acc[i][j][1] + b1));
+          const float v0 = round_bf16(acc[i][j][0] + b0);
+          const float v1 = round_bf16(acc[i][j][1] + b1);
+          if (kArgmax) {
+            if (v0 > m0) { m0 = v0; r0 = r; }
+            if (v1 > m1) { m1 = v1; r1 = r; }
+          } else {
+            m0 = fmaxf(m0, v0);
+            m1 = fmaxf(m1, v1);
+          }
         }
         if (r + 8 < valid_rows) {
-          m0 = fmaxf(m0, round_bf16(acc[i][j][2] + b0));
-          m1 = fmaxf(m1, round_bf16(acc[i][j][3] + b1));
+          const float v0 = round_bf16(acc[i][j][2] + b0);
+          const float v1 = round_bf16(acc[i][j][3] + b1);
+          if (kArgmax) {
+            if (v0 > m0) { m0 = v0; r0 = r + 8; }
+            if (v1 > m1) { m1 = v1; r1 = r + 8; }
+          } else {
+            m0 = fmaxf(m0, v0);
+            m1 = fmaxf(m1, v1);
+          }
         }
       }
       // lanes with the same lane % 4 hold the same two columns
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        const float o0 = __shfl_xor_sync(0xffffffffu, m0, off);
+        const float o1 = __shfl_xor_sync(0xffffffffu, m1, off);
+        if (kArgmax) {
+          const int q0 = __shfl_xor_sync(0xffffffffu, r0, off);
+          const int q1 = __shfl_xor_sync(0xffffffffu, r1, off);
+          take_first_max(m0, r0, o0, q0);
+          take_first_max(m1, r1, o1, q1);
+        } else {
+          m0 = fmaxf(m0, o0);
+          m1 = fmaxf(m1, o1);
+        }
       }
       if (lane < 4) {
-        atomic_max_float(pooled + c, m0);
-        atomic_max_float(pooled + c + 1, m1);
+        if (kArgmax) {
+          // valid_rows >= 1, so r0 and r1 are real rows of this tile
+          atomicMax(keys + c, ((unsigned long long)ordered_bits(m0) << 32) |
+                                  (0xFFFFFFFFu - (unsigned)(row0 + r0)));
+          atomicMax(keys + c + 1, ((unsigned long long)ordered_bits(m1) << 32) |
+                                      (0xFFFFFFFFu - (unsigned)(row0 + r1)));
+        } else {
+          atomic_max_float(pooled + c, m0);
+          atomic_max_float(pooled + c + 1, m1);
+        }
       }
     }
   }
 }
 
+template <bool kArgmax>
 __global__ void __launch_bounds__(kThreads)
 trunk_pool_kernel(const bf16* __restrict__ x, Layers p, float* __restrict__ pooled,
-                  int n, int tiles_per_cloud) {
+                  unsigned long long* __restrict__ keys, int n, int tiles_per_cloud) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf0 = reinterpret_cast<bf16*>(smem);
   bf16* buf1 = reinterpret_cast<bf16*>(smem + kBuf0Bytes);
@@ -259,8 +335,8 @@ trunk_pool_kernel(const bf16* __restrict__ x, Layers p, float* __restrict__ pool
   __syncthreads();
   dense_relu(buf0, kLd0, 256, p.w[3], p.b[3], 512, buf1, kLd1, warp, lane);
   __syncthreads();
-  dense_max(buf1, kLd1, 512, p.w[4], p.b[4], pooled + (size_t)cloud * kOut, valid_rows,
-            warp, lane);
+  dense_max<kArgmax>(buf1, kLd1, 512, p.w[4], p.b[4], pooled + (size_t)cloud * kOut,
+                     keys + (size_t)cloud * kOut, row0, valid_rows, warp, lane);
 }
 
 __global__ void fill_neg_inf(float* __restrict__ a, int count) {
@@ -271,6 +347,34 @@ __global__ void fill_neg_inf(float* __restrict__ a, int count) {
 __global__ void cast_to_bf16(const float* __restrict__ a, bf16* __restrict__ out, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < count) out[i] = __float2bfloat16(a[i]);
+}
+
+__global__ void fill_zero_keys(unsigned long long* __restrict__ a, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) a[i] = 0ull;
+}
+
+__global__ void unpack_keys(const unsigned long long* __restrict__ keys, bf16* __restrict__ out,
+                            int* __restrict__ idx, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) {
+    const unsigned long long k = keys[i];
+    out[i] = __float2bfloat16(unordered_bits((unsigned)(k >> 32)));
+    idx[i] = (int)(0xFFFFFFFFu - (unsigned)(k & 0xFFFFFFFFull));
+  }
+}
+
+Layers make_layers(const void* w1, const void* b1, const void* w2, const void* b2,
+                   const void* w3, const void* b3, const void* w4, const void* b4,
+                   const void* w5, const void* b5) {
+  Layers p;
+  const void* ws[5] = {w1, w2, w3, w4, w5};
+  const void* bs[5] = {b1, b2, b3, b4, b5};
+  for (int i = 0; i < 5; ++i) {
+    p.w[i] = static_cast<const bf16*>(ws[i]);
+    p.b[i] = static_cast<const bf16*>(bs[i]);
+  }
+  return p;
 }
 
 }  // namespace
@@ -288,18 +392,12 @@ extern "C" int hpcd_trunk_pool_bf16(const void* x,
                                     int batch, int n, void* stream) {
   if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(trunk_pool_kernel,
+  cudaError_t err = cudaFuncSetAttribute(trunk_pool_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
 
-  Layers p;
-  const void* ws[5] = {w1, w2, w3, w4, w5};
-  const void* bs[5] = {b1, b2, b3, b4, b5};
-  for (int i = 0; i < 5; ++i) {
-    p.w[i] = static_cast<const bf16*>(ws[i]);
-    p.b[i] = static_cast<const bf16*>(bs[i]);
-  }
+  const Layers p = make_layers(w1, b1, w2, b2, w3, b3, w4, b4, w5, b5);
   const int count = batch * kOut;
   const int tiles = (n + kTile - 1) / kTile;
   float* pooled_f = static_cast<float*>(pooled);
@@ -307,10 +405,46 @@ extern "C" int hpcd_trunk_pool_bf16(const void* x,
   fill_neg_inf<<<(count + 255) / 256, 256, 0, s>>>(pooled_f, count);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  trunk_pool_kernel<<<batch * tiles, kThreads, kSmemBytes, s>>>(
-      static_cast<const bf16*>(x), p, pooled_f, n, tiles);
+  trunk_pool_kernel<false><<<batch * tiles, kThreads, kSmemBytes, s>>>(
+      static_cast<const bf16*>(x), p, pooled_f, nullptr, n, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cast_to_bf16<<<(count + 255) / 256, 256, 0, s>>>(pooled_f, static_cast<bf16*>(out), count);
+  return (int)cudaGetLastError();
+}
+
+// K8: as hpcd_trunk_pool_bf16, plus the first argmax over points of every
+// (cloud, channel). keys (batch, 512) uint64 scratch; out (batch, 512) bf16;
+// idx (batch, 512) int32. Launches on `stream`, does not synchronise,
+// returns cudaGetLastError().
+extern "C" int hpcd_trunk_pool_argmax_bf16(const void* x,
+                                           const void* w1, const void* b1,
+                                           const void* w2, const void* b2,
+                                           const void* w3, const void* b3,
+                                           const void* w4, const void* b4,
+                                           const void* w5, const void* b5,
+                                           void* keys, void* out, void* idx,
+                                           int batch, int n, void* stream) {
+  if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(trunk_pool_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+
+  const Layers p = make_layers(w1, b1, w2, b2, w3, b3, w4, b4, w5, b5);
+  const int count = batch * kOut;
+  const int tiles = (n + kTile - 1) / kTile;
+  auto* keys_u = static_cast<unsigned long long*>(keys);
+
+  fill_zero_keys<<<(count + 255) / 256, 256, 0, s>>>(keys_u, count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  trunk_pool_kernel<true><<<batch * tiles, kThreads, kSmemBytes, s>>>(
+      static_cast<const bf16*>(x), p, nullptr, keys_u, n, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  unpack_keys<<<(count + 255) / 256, 256, 0, s>>>(keys_u, static_cast<bf16*>(out),
+                                                  static_cast<int*>(idx), count);
   return (int)cudaGetLastError();
 }

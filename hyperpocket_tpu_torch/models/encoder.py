@@ -6,22 +6,27 @@ over points, FC 512->512 + ReLU, then a ``mu`` head and (VAE only) a ``std``
 head whose output is log-sigma. ReLU is plain everywhere: the configs'
 ``relu_slope`` is ignored, as in the JAX package.
 
-Inference (``fast=True``) sends the trunk to the fused kernel
-(``ops/trunk_pool.py``) under the JAX package's gate: bf16 input with N a
-multiple of 8. Otherwise a cloud of at least 2 x C_out points (1024) runs
-``_ConvPooledSparse``, whose backward recomputes only the pool's argmax
-rows, and a smaller cloud the plain matmul chain and a max over points.
-The JAX package's opt-in fused training forward (``HPCD_TRUNK_FUSED_FWD``,
-kernel K8) is not ported yet.
+Inference (``fast=True``) sends the trunk to the fused kernel K4
+(``ops/trunk_pool.py::trunk_pooled``) under the JAX package's gate: bf16
+input with N a multiple of 8. Otherwise a cloud of at least 2 x C_out
+points (1024) runs ``_ConvPooledSparse``, whose backward recomputes only the
+pool's argmax rows, and a smaller cloud the plain matmul chain and a max
+over points. With ``HPCD_TRUNK_FUSED_FWD=1`` in the environment (the JAX
+package's opt-in, read at every call), a bf16 cloud of at least 2 x C_out
+points with N a multiple of 8 runs ``_ConvPooledSparseFused`` instead: the
+same backward, with the forward and the argmax from the fused kernel K8
+(``trunk_pooled_argmax``), so no (B, N, C) activation is written.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
 
 from hyperpocket_tpu_torch.models.initializers import dense, dense_init_
-from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
 
 CONV_CHANNELS = (3, 64, 128, 256, 512, 512)
 
@@ -58,7 +63,9 @@ class Encoder(nn.Module):
             for layer in self.conv:
                 params += [layer.weight.to(x.dtype),
                            None if layer.bias is None else layer.bias.to(x.dtype)]
-            pooled = _ConvPooledSparse.apply(x, *params)
+            fused = (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+                     and os.environ.get("HPCD_TRUNK_FUSED_FWD") == "1")
+            pooled = (_ConvPooledSparseFused if fused else _ConvPooledSparse).apply(x, *params)
         else:
             # amax splits the gradient of a tie evenly, as jnp.max does
             pooled = self.conv_stack(x).amax(dim=1)
@@ -148,3 +155,22 @@ class _ConvPooledSparse(torch.autograd.Function):
             dx.index_add_(0, rows, dh.reshape(-1, x.shape[2]))
             dx = dx.view_as(x)
         return (dx, *grads)
+
+
+class _ConvPooledSparseFused(_ConvPooledSparse):
+    """``_ConvPooledSparse`` with its forward from the fused kernel K8.
+
+    Port of ``_conv_pooled_sparse_fused`` (``hyperpocket_tpu/models/encoder.py``):
+    ``trunk_pooled_argmax`` returns the pooled values and the first argmax
+    per channel (a CUDA tensor launches K8 or raises; a CPU tensor takes its
+    plain version), and the backward is the parent's virtual-row backward on
+    that argmax. bf16 only; the kernel's sums run in another order than the
+    recompute in the backward, so the two agree to bf16 rounding, not bit for
+    bit, as in the JAX package.
+    """
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        pooled, amax = trunk_pooled_argmax(list(zip(params[0::2], params[1::2])), x)
+        ctx.save_for_backward(x, amax.long(), *params)
+        return pooled

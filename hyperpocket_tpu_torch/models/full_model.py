@@ -151,7 +151,8 @@ class FullModel(nn.Module):
               generator: torch.Generator | None, epoch, *, num_output_points: int = 2048,
               training: bool = True, noise: torch.Tensor | None = None,
               vae_eps: torch.Tensor | None = None,
-              ball_points: torch.Tensor | None = None):
+              ball_points: torch.Tensor | None = None,
+              head_delta: torch.Tensor | None = None, return_trunk: bool = False):
         """The forward pass.
 
         existing/missing: (B, N, 3) clouds. Training returns
@@ -161,16 +162,23 @@ class FullModel(nn.Module):
         (B, num_output_points, 3) replace the two random draws with given
         values. Sub-fp32 compute returns fp32; fp32 and fp64 return their own
         dtype.
+
+        ``head_delta`` and ``return_trunk`` are the fused head-Adam taps
+        (``HyperNetwork.forward``): with either set the head weight gets no
+        autograd gradient (unless the heads are frozen anyway), and with
+        ``return_trunk`` the hypernetwork's trunk activations are returned
+        last: ``(reconstruction, mu, sigma, h)`` or ``(reconstruction, h)``.
+        Production forwards set neither.
         """
+        args = (existing, missing, generator, epoch, num_output_points, training, noise,
+                vae_eps, ball_points, head_delta, return_trunk)
         if not training:
             with torch.no_grad():
-                return self._forward(existing, missing, generator, epoch, num_output_points,
-                                     False, noise, vae_eps, ball_points)
-        return self._forward(existing, missing, generator, epoch, num_output_points, True,
-                             noise, vae_eps, ball_points)
+                return self._forward(*args)
+        return self._forward(*args)
 
     def _forward(self, existing, missing, generator, epoch, num_output_points, training,
-                 noise, vae_eps, ball_points):
+                 noise, vae_eps, ball_points, head_delta, return_trunk):
         cd = self.compute_torch_dtype
 
         def cast(a):
@@ -179,7 +187,10 @@ class FullModel(nn.Module):
         existing, missing, noise = cast(existing), cast(missing), cast(noise)
         latent, mu, sigma = self._get_latent(existing, missing, generator, training, noise,
                                              vae_eps)
-        flat_weights = self.hyper_network(latent)
+        fused_tap = head_delta is not None or return_trunk
+        hn_out = self.hyper_network(latent, stop_head_weight_grad=fused_tap,
+                                    head_delta=head_delta, return_trunk=return_trunk)
+        flat_weights, trunk_h = hn_out if return_trunk else (hn_out, None)
         if ball_points is None:
             ball_points = generate_target_network_input_batch(
                 self.target_network_input, generator, epoch, existing.shape[0],
@@ -189,7 +200,8 @@ class FullModel(nn.Module):
             list(self.target_layer_out_channels), self.target_use_bias)
         out_dtype = cd if torch.finfo(cd).bits >= 32 else torch.float32
         reconstruction = reconstruction.to(out_dtype)
+        trunk = (trunk_h,) if return_trunk else ()
         if not training:
-            return reconstruction
+            return (reconstruction, *trunk) if return_trunk else reconstruction
         return (reconstruction, None if mu is None else mu.to(out_dtype),
-                None if sigma is None else sigma.to(out_dtype))
+                None if sigma is None else sigma.to(out_dtype), *trunk)

@@ -62,8 +62,18 @@ class HyperNetwork(nn.Module):
             with torch.no_grad():
                 self.heads.bias.zero_()
 
-    def forward(self, latent: torch.Tensor) -> torch.Tensor:
-        """latent (B, Z) -> flat target-network weights (B, sum(sizes))."""
+    def forward(self, latent: torch.Tensor, *, stop_head_weight_grad: bool = False,
+                head_delta: torch.Tensor | None = None, return_trunk: bool = False):
+        """latent (B, Z) -> flat target-network weights (B, sum(sizes)).
+
+        ``stop_head_weight_grad``, ``head_delta`` and ``return_trunk`` are the
+        fused head-Adam taps (``ops/head_adam.py``): the head weight is used
+        detached, so autograd forms no dW; a zero ``head_delta`` (B, W) added
+        to the head output receives the output's cotangent in its ``.grad``;
+        and the trunk activations ``h`` (B, 2048) are returned as
+        ``(flat, h)``, so the kernel forms dW from ``h`` and that cotangent.
+        The head bias keeps its gradient. Production forwards set none.
+        """
         h = latent
         for i, layer in enumerate(self.trunk):
             h = dense(layer, h)
@@ -72,4 +82,9 @@ class HyperNetwork(nn.Module):
         w, b = self.heads.weight, self.heads.bias
         if self.freeze_heads:
             w, b = w.detach(), b.detach()
-        return nn.functional.linear(h, w.to(h.dtype), b.to(h.dtype))
+        elif stop_head_weight_grad:
+            w = w.detach()
+        flat = nn.functional.linear(h, w.to(h.dtype), b.to(h.dtype))
+        if head_delta is not None:
+            flat = flat + head_delta.to(flat.dtype)
+        return (flat, h) if return_trunk else flat

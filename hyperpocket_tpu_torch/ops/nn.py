@@ -9,9 +9,12 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
 * ``chamfer_loss_streaming``: the Chamfer sum. With no gradient needed it
   runs K3 once; under autograd K1 runs twice, the indices are saved, and the
   backward is ``ops/chamfer.py::nn_backward``.
-* ``chamfer_loss_auto``: the JAX package's gate. fp32 clouds whose point
-  counts are multiples of 128 take the streaming path; everything else,
-  fp64 included, takes ``ops/chamfer.py::chamfer_loss``.
+* ``chamfer_loss_auto``: the training loss's dispatch. fp32 CUDA clouds
+  take the streaming path at any point counts; fp64 (the trajectory-parity
+  mode) takes ``ops/chamfer.py::chamfer_loss``, as in the JAX package. CPU
+  clouds keep the JAX package's gate: fp32 with both point counts
+  multiples of 128 take the streaming path (the plain versions of the
+  kernels), everything else the plain loss.
 * the metric dispatchers ``nn_min_dists``, ``chamfer_per_cloud_auto``,
   ``directed_hausdorff_auto`` (K3) and ``nn_distance_auto`` (K1 twice): the
   matrix forms of ``ops/chamfer.py`` for CPU clouds, the kernels for CUDA
@@ -184,9 +187,11 @@ def pallas_shapes_ok(n: int, m: int) -> bool:
 
 
 def chamfer_loss_auto(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
-    """The streaming kernels for fp32 aligned clouds, else the plain loss."""
+    """The streaming kernels for fp32 clouds (on the CPU only at 128-aligned
+    counts, the JAX package's gate), else the plain loss."""
     fp32 = gts.dtype == torch.float32 and preds.dtype == torch.float32
-    if fp32 and pallas_shapes_ok(gts.shape[1], preds.shape[1]):
+    on_cpu = gts.device.type == "cpu" and preds.device.type == "cpu"
+    if fp32 and (not on_cpu or pallas_shapes_ok(gts.shape[1], preds.shape[1])):
         return chamfer_loss_streaming(gts, preds)
     return chamfer_loss(gts, preds)
 

@@ -1,11 +1,18 @@
-"""Fused encoder trunk + max-pool: the CUDA kernel and its plain version.
+"""Fused encoder trunk + max-pool: the CUDA kernels and their plain versions.
 
-Counterpart of ``hyperpocket_tpu/ops/pallas_encoder.py::trunk_pooled``: x
-(B, N, 3) bf16 and the encoder's five pointwise layers -> (B, 512) bf16, the
-max over points of the five-layer stack, with bf16 rounding after every
-layer. The kernel is ``csrc/trunk_pool.cu`` (its header says how it is laid
-out on the H100); ``trunk_pooled_reference`` is the same arithmetic in plain
-PyTorch.
+Counterparts of ``hyperpocket_tpu/ops/pallas_encoder.py``:
+
+* ``trunk_pooled`` (K4): x (B, N, 3) bf16 and the encoder's five pointwise
+  layers -> (B, 512) bf16, the max over points of the five-layer stack,
+  with bf16 rounding after every layer;
+* ``trunk_pooled_argmax`` (K8): the same pooled values and, per channel,
+  the first point where the maximum is reached, (B, 512) int32 — the
+  training forward, whose backward routes each channel's cotangent to that
+  point.
+
+Both kernels are ``csrc/trunk_pool.cu`` (its header says how it is laid out
+on the H100); ``trunk_pooled_reference`` and
+``trunk_pooled_argmax_reference`` are the same arithmetic in plain PyTorch.
 
 ``layers`` is a sequence of ``(weight, bias)`` pairs in ``nn.Linear`` layout:
 weight (out, in), bias (out,) or None.
@@ -45,14 +52,13 @@ def _bias(w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     return b if b is not None else torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
 
 
-def trunk_pooled_reference(layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: fp32 math on bf16 operands, bf16 per layer.
+def _stack_reference(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """The five layers with the kernels' arithmetic: (B, N, 512) bf16.
 
-    Layer 1 adds the three products to the bias one at a time, as the kernel
-    does; layers 2-5 are an fp32 matmul plus the fp32 bias. ReLU follows
-    layers 1-4. The max over points is taken in fp32 and stored as bf16.
+    Layer 1 adds the three products to the bias one at a time, as the kernels
+    do; layers 2-5 are an fp32 matmul plus the fp32 bias. ReLU follows
+    layers 1-4; every layer's output is rounded to bf16.
     """
-    _check(layers, x)
     bf16 = torch.bfloat16
     ws = [w.to(bf16).float() for w, _ in layers]
     bs = [_bias(w, b).to(bf16).float() for w, b in layers]
@@ -64,27 +70,35 @@ def trunk_pooled_reference(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     for i in range(1, len(ws)):
         a = torch.matmul(h.float(), ws[i].T) + bs[i]
         h = (torch.relu(a) if i < len(ws) - 1 else a).to(bf16)
-    return h.float().amax(dim=1).to(bf16)
+    return h
+
+
+def trunk_pooled_reference(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: the max over points, taken in fp32, stored as bf16."""
+    _check(layers, x)
+    return _stack_reference(layers, x).float().amax(dim=1).to(torch.bfloat16)
+
+
+def trunk_pooled_argmax_reference(layers: Layers, x: torch.Tensor):
+    """Plain version of K8: (pooled (B, 512) bf16, first argmax (B, 512) int32).
+
+    ``torch.max`` over points returns the first index of equal maxima.
+    """
+    _check(layers, x)
+    pooled, idx = torch.max(_stack_reference(layers, x).float(), dim=1)
+    return pooled.to(torch.bfloat16), idx.int()
 
 
 @functools.cache
-def _kernel():
-    fn = library().hpcd_trunk_pool_bf16
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _kernel(symbol: str, n_pointers: int):
+    fn = getattr(library(), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def trunk_pooled(layers: Layers, x: torch.Tensor) -> torch.Tensor:
-    """x (B, N, 3) -> pooled features (B, 512) bf16.
-
-    A CUDA tensor launches the kernel on the current stream (or raises);
-    a CPU tensor runs ``trunk_pooled_reference``. ``trunk_pooled.launches``
-    counts kernel launches.
-    """
-    _check(layers, x)
-    if x.device.type == "cpu":
-        return trunk_pooled_reference(layers, x)
+def _kernel_operands(layers: Layers, x: torch.Tensor) -> list[torch.Tensor]:
+    """The layers as contiguous bf16 tensors on x's device; raise on what the kernels refuse."""
     if x.device.type != "cuda":
         raise ValueError(f"trunk_pooled runs on CUDA or CPU tensors, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -102,17 +116,61 @@ def trunk_pooled(layers: Layers, x: torch.Tensor) -> torch.Tensor:
             if t.data_ptr() % 4:
                 raise ValueError("the trunk kernel reads layer tensors as 4-byte words")
             args.append(t)
+    return args
+
+
+def _launch(symbol: str, x: torch.Tensor, args: list[torch.Tensor],
+            outs: list[torch.Tensor]) -> None:
     batch, n = x.shape[:2]
-    pooled = torch.empty((batch, WIDTHS[-1]), dtype=torch.float32, device=x.device)
-    out = torch.empty((batch, WIDTHS[-1]), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(x.data_ptr(), *(t.data_ptr() for t in args), pooled.data_ptr(),
-                       out.data_ptr(), batch, n, stream)
+        rc = _kernel(symbol, 1 + len(args) + len(outs))(
+            x.data_ptr(), *(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
+            batch, n, stream)
     if rc != 0:
-        raise RuntimeError(f"trunk_pool kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{symbol} kernel launch failed with CUDA error {rc}")
+
+
+def trunk_pooled(layers: Layers, x: torch.Tensor) -> torch.Tensor:
+    """K4: x (B, N, 3) -> pooled features (B, 512) bf16.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    a CPU tensor runs ``trunk_pooled_reference``. ``trunk_pooled.launches``
+    counts kernel launches.
+    """
+    _check(layers, x)
+    if x.device.type == "cpu":
+        return trunk_pooled_reference(layers, x)
+    args = _kernel_operands(layers, x)
+    shape = (x.shape[0], WIDTHS[-1])
+    pooled = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    _launch("hpcd_trunk_pool_bf16", x, args, [pooled, out])
     trunk_pooled.launches += 1
     return out
 
 
 trunk_pooled.launches = 0
+
+
+def trunk_pooled_argmax(layers: Layers, x: torch.Tensor):
+    """K8: x (B, N, 3) -> (pooled (B, 512) bf16, first argmax (B, 512) int32).
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    a CPU tensor runs ``trunk_pooled_argmax_reference``.
+    ``trunk_pooled_argmax.launches`` counts kernel launches.
+    """
+    _check(layers, x)
+    if x.device.type == "cpu":
+        return trunk_pooled_argmax_reference(layers, x)
+    args = _kernel_operands(layers, x)
+    shape = (x.shape[0], WIDTHS[-1])
+    keys = torch.empty(shape, dtype=torch.int64, device=x.device)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    idx = torch.empty(shape, dtype=torch.int32, device=x.device)
+    _launch("hpcd_trunk_pool_argmax_bf16", x, args, [keys, out, idx])
+    trunk_pooled_argmax.launches += 1
+    return out, idx
+
+
+trunk_pooled_argmax.launches = 0

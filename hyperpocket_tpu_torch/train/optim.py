@@ -13,10 +13,13 @@ each optimizer is the JAX package's optax chain:
   ``scale_by_rms`` divides by ``sqrt(nu + eps)`` (torch's RMSprop by
   ``sqrt(nu) + eps``).
 
+* Adam and AdamW with ``moment_dtype`` (``AdamLowp``) are written here as
+  the JAX package's ``scale_by_adam_lowp``: both moments stored in the
+  narrow dtype, their update computed in the gradient's dtype and rounded
+  on store, the bias correction ``1 - b^count`` in fp32.
+
 Frozen hypernetwork heads are left out of the optimizer, as the reference
-leaves them out of its parameters. Adam moments in a narrower dtype
-(``moment_dtype``, the JAX package's ``scale_by_adam_lowp``) are not ported
-yet (ROADMAP.md, "train/optim.py: moment_dtype").
+leaves them out of its parameters.
 
 ``make_lr_schedule`` returns ``lr_for_epoch(epoch)`` for 1-indexed epochs
 with torch's scheduler convention; ``set_learning_rate`` writes it into the
@@ -30,8 +33,7 @@ from typing import Callable, Iterable
 
 import torch
 
-_MOMENT_DTYPE_TODO = ("Adam moments in a narrower dtype (moment_dtype) are not ported yet: "
-                      "ROADMAP.md, \"train/optim.py: moment_dtype\"")
+from hyperpocket_tpu_torch.models.full_model import _DTYPES
 
 
 class OptaxAmsgrad(torch.optim.Optimizer):
@@ -77,6 +79,57 @@ class OptaxAmsgrad(torch.optim.Optimizer):
         return loss
 
 
+class AdamLowp(torch.optim.Optimizer):
+    """Adam as the JAX package's ``scale_by_adam_lowp``, with optional L2 decay.
+
+    ``mu`` and ``nu`` are stored in ``moment_dtype``; each step computes
+    them in the gradient's dtype from the stored values and rounds them on
+    store, and the update reads the stored (rounded) moments in fp32:
+    ``(mu / bc1) / (sqrt(nu / bc2) + eps)`` with ``bc = 1 - b^step`` in
+    fp32. ``decoupled`` selects AdamW's decay (added to the update) over
+    Adam's (added to the gradient).
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, decoupled: bool = False,
+                 moment_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, decoupled=decoupled,
+                                      moment_dtype=moment_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        f32 = torch.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            wd, md = group["weight_decay"], group["moment_dtype"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if wd and not group["decoupled"]:
+                    g = g + wd * p
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=md)
+                    state["nu"] = torch.zeros_like(p, dtype=md)
+                state["step"] += 1
+                t = torch.tensor(float(state["step"]), dtype=f32)
+                mu = (b1 * state["mu"].to(g.dtype) + (1 - b1) * g).to(md)
+                nu = (b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g).to(md)
+                state["mu"], state["nu"] = mu, nu
+                bc1 = 1 - torch.tensor(b1, dtype=f32) ** t
+                bc2 = 1 - torch.tensor(b2, dtype=f32) ** t
+                update = (mu.to(f32) / bc1.to(mu.device)) / (
+                    torch.sqrt(nu.to(f32) / bc2.to(nu.device)) + group["eps"])
+                if wd and group["decoupled"]:
+                    update = update + wd * p
+                p.add_((-group["lr"] * update).to(p.dtype))
+        return loss
+
+
 class OptaxRMSprop(torch.optim.Optimizer):
     """RMSprop as optax's ``scale_by_rms`` (``eps`` inside the square root),
     after coupled L2 decay."""
@@ -113,6 +166,8 @@ def make_optimizer(opt_config: dict, params: Iterable[torch.nn.Parameter],
     """Build the optimizer of a reference-schema config over ``params``.
 
     Pass ``trainable_parameters(model)`` to leave frozen heads out.
+    ``moment_dtype`` (or ``hyperparams.moment_dtype``, which wins) stores
+    Adam's moments in that dtype.
     """
     kind = opt_config["type"]
     hp = dict(opt_config.get("hyperparams", {}))
@@ -124,9 +179,14 @@ def make_optimizer(opt_config: dict, params: Iterable[torch.nn.Parameter],
         eps = float(hp.pop("eps", 1e-8))
         wd = float(hp.pop("weight_decay", 0.0))
         amsgrad = bool(hp.pop("amsgrad", False))
-        if hp.pop("moment_dtype", moment_dtype) is not None:
-            raise NotImplementedError(_MOMENT_DTYPE_TODO)
+        moment_dtype = hp.pop("moment_dtype", moment_dtype)
+        if amsgrad and moment_dtype is not None:
+            raise ValueError("moment_dtype is not supported with amsgrad=true "
+                             "(scale_by_amsgrad keeps fp32 moments); drop one of the two")
         betas = (float(b1), float(b2))
+        if moment_dtype is not None:
+            return AdamLowp(params, lr, betas, eps, wd, decoupled=kind == "AdamW",
+                            moment_dtype=_DTYPES[str(moment_dtype)])
         if amsgrad:
             return OptaxAmsgrad(params, lr, betas, eps, wd, decoupled=kind == "AdamW")
         if kind == "Adam":

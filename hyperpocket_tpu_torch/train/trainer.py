@@ -1,23 +1,53 @@
-"""The train step and the val step.
+"""The train and val steps and the epoch loops.
 
-Port of ``make_train_step`` and ``make_val_step`` in
-``hyperpocket_tpu/train/trainer.py``. A step is one forward with autograd,
-the Chamfer + KLD loss, one backward and one optimizer update, eagerly on the
-model's device. Randomness comes from an explicit ``torch.Generator``; the
-``vae_eps``/``ball_points`` hooks replace the two draws with given values.
+Port of ``hyperpocket_tpu/train/trainer.py``:
 
-The ``Trainer`` class, its epoch loops and checkpoint saving are not ported
-yet (ROADMAP.md, slice 3).
+* ``make_train_step`` / ``make_val_step``: one forward with autograd, the
+  Chamfer + KLD loss, one backward and one optimizer update, eagerly on the
+  model's device; the val step is the inference forward and the loss.
+  Randomness comes from an explicit ``torch.Generator``; the
+  ``vae_eps``/``ball_points`` hooks replace the two draws with given values.
+* ``make_fused_train_step``: the step with the hypernetwork head's weight
+  updated by the fused head-Adam kernel K11 (``ops/head_adam.py``) instead
+  of the optimizer. As in the JAX package it is not wired to ``Trainer``.
+* ``Trainer``: the session a training config describes: the results tree
+  and logging, the model, optimizer and schedule, the loaders, the epoch
+  loops, checkpoints in the JAX package's layout (``train/checkpoint.py``)
+  and resume, exact to the draws: every step seeds a
+  ``torch.Generator`` from the counter ``seed * 1_000_003 + n``, and the
+  counter is saved with each checkpoint.
+
+Not ported: the device mesh (``training.parallel`` asking for more than one
+device raises), the compile cache (``setup.compile_cache``) and
+``training.prng_impl``, which are not read, and the ``scan`` epoch mode,
+whose trajectory the JAX package holds equal to the step loop's: with
+``epoch_mode: "scan"`` the step loop runs, and ``scan_invocations`` stays 0.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import time
+from dataclasses import dataclass
+from os import makedirs
+from os.path import exists, join
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from hyperpocket_tpu_torch.models.full_model import FullModel
+from hyperpocket_tpu_torch.models.full_model import _DTYPES, FullModel
+from hyperpocket_tpu_torch.ops.head_adam import adam_scalars, head_adam_update
+from hyperpocket_tpu_torch.train import checkpoint as ckpt
+from hyperpocket_tpu_torch.train.config import get_results_dir_path
 from hyperpocket_tpu_torch.train.losses import kld_loss, reconstruction_loss
+from hyperpocket_tpu_torch.train.optim import (
+    make_lr_schedule,
+    make_optimizer,
+    set_learning_rate,
+    trainable_parameters,
+)
 
 
 def model_from_config(config: dict[str, Any],
@@ -38,6 +68,15 @@ def set_matmul_precision(precision: str = "highest") -> None:
     torch.set_float32_matmul_precision("high" if tf32 else "highest")
 
 
+def _losses(model: FullModel, rec, mu, sigma, gt, loss_coef: float):
+    loss_r = reconstruction_loss(gt, rec, loss_coef)
+    if model.has_generativity:
+        loss_k = kld_loss(mu, sigma, gt.shape[0])
+    else:
+        loss_k = torch.zeros((), dtype=loss_r.dtype, device=loss_r.device)
+    return loss_r + loss_k, loss_r, loss_k
+
+
 def make_train_step(model: FullModel, optimizer: torch.optim.Optimizer,
                     loss_coef: float) -> Callable:
     """Returns ``step(existing, missing, gt, generator, epoch, num_points,
@@ -53,14 +92,62 @@ def make_train_step(model: FullModel, optimizer: torch.optim.Optimizer,
         rec, mu, sigma = model.apply(existing, missing, generator, epoch,
                                      num_output_points=num_points, training=True,
                                      vae_eps=vae_eps, ball_points=ball_points)
-        loss_r = reconstruction_loss(gt, rec, loss_coef)
-        if model.has_generativity:
-            loss_k = kld_loss(mu, sigma, existing.shape[0])
-        else:
-            loss_k = torch.zeros((), dtype=loss_r.dtype, device=loss_r.device)
-        loss = loss_r + loss_k
+        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef)
         loss.backward()
         optimizer.step()
+        return loss.detach(), loss_r.detach(), loss_k.detach(), rec.detach()
+
+    return step
+
+
+def init_head_adam_state(model: FullModel, moment_dtype: str = "bfloat16") -> dict:
+    """Adam state of the head weight for ``make_fused_train_step``: zero
+    moments in ``moment_dtype`` and ``count`` 0."""
+    w = model.hyper_network.heads.weight
+    md = _DTYPES[moment_dtype]
+    return {"m": torch.zeros(w.shape, dtype=md, device=w.device),
+            "v": torch.zeros(w.shape, dtype=md, device=w.device), "count": 0}
+
+
+def make_fused_train_step(model: FullModel, optimizer: torch.optim.Optimizer, loss_coef: float,
+                          adam_cfg: tuple = (0.9, 0.999, 1e-8)) -> Callable:
+    """The train step with the head weight updated by the fused head-Adam kernel.
+
+    Returns ``step(head_state, existing, missing, gt, generator, epoch,
+    num_points, vae_eps=None, ball_points=None) -> (loss, loss_r, loss_k,
+    rec)``. The forward runs with the head taps (``FullModel.apply``'s
+    ``head_delta`` and ``return_trunk``): autograd forms no head-weight
+    gradient, the zero ``head_delta``'s gradient is the head output's
+    cotangent, and after ``optimizer.step()`` ``head_adam_update`` (K11 on
+    a CUDA tensor) forms dW from it and the trunk activations and applies
+    Adam to the weight and ``head_state``'s moments in place, with the
+    optimizer's learning rate and ``head_state["count"]`` incremented
+    first. ``optimizer`` must leave the head weight out; plain Adam
+    (weight decay 0), as in the JAX package.
+    """
+    b1, b2, eps = adam_cfg
+    w = model.hyper_network.heads.weight
+    if any(p is w for group in optimizer.param_groups for p in group["params"]):
+        raise ValueError("the fused step updates the head weight itself: leave it out of "
+                         "the optimizer")
+
+    def step(head_state, existing, missing, gt, generator, epoch, num_points, vae_eps=None,
+             ball_points=None):
+        optimizer.zero_grad(set_to_none=True)
+        delta = torch.zeros((existing.shape[0], w.shape[0]), dtype=model.compute_torch_dtype,
+                            device=existing.device, requires_grad=True)
+        rec, mu, sigma, h = model.apply(existing, missing, generator, epoch,
+                                        num_output_points=num_points, training=True,
+                                        vae_eps=vae_eps, ball_points=ball_points,
+                                        head_delta=delta, return_trunk=True)
+        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef)
+        loss.backward()
+        optimizer.step()
+        head_state["count"] += 1
+        scalars = adam_scalars(optimizer.param_groups[0]["lr"], b1, b2, eps,
+                               head_state["count"])
+        head_adam_update(h.detach(), delta.grad, w.detach(), head_state["m"], head_state["v"],
+                         scalars)
         return loss.detach(), loss_r.detach(), loss_k.detach(), rec.detach()
 
     return step
@@ -78,3 +165,288 @@ def make_val_step(model: FullModel, loss_coef: float) -> Callable:
         return reconstruction_loss(gt, rec, loss_coef), rec
 
     return step
+
+
+@dataclass
+class EpochStats:
+    loss_all: float
+    loss_r: float
+    loss_kld: float
+
+
+class Trainer:
+    """A training session built from a reference-schema config.
+
+    ``device`` defaults to ``cuda`` and raises when CUDA is absent. The
+    deterministic-injection hook ``injection_provider`` is a callable
+    ``(epoch, batch_index) -> {"vae_eps": ..., "ball_points": ...}`` whose
+    arrays replace a train step's draws; after each ``train_epoch``
+    ``last_step_losses`` holds that epoch's per-step (loss, loss_r,
+    loss_kld) rows.
+    """
+
+    def __init__(self, config: dict, *, device: str | torch.device = "cuda"):
+        from hyperpocket_tpu_torch.data.base import get_datasets
+        from hyperpocket_tpu_torch.data.loader import BatchLoader
+        from hyperpocket_tpu_torch.utils.logging_setup import logging_setup, seed_setup
+
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self.config = config
+        tr = config["training"]
+        par = tr.get("parallel", {})
+        if int(par.get("model", 1)) > 1 or int(par.get("data") or 1) > 1:
+            raise NotImplementedError(
+                f"training.parallel={par} asks for more than one device; the port trains on "
+                "one (ROADMAP.md, slice 'Parallelism')")
+        seed = int(config["setup"]["seed"])
+        seed_setup(seed)
+        set_matmul_precision(tr.get("matmul_precision", "highest"))
+        self._seed_counter = seed * 1_000_003
+
+        self.result_dir = get_results_dir_path(config, "training")
+        self.weights_path = join(self.result_dir, "weights")
+        self.metrics_path = join(self.result_dir, "metrics")
+        self.samples_path = join(self.result_dir, "samples")
+        for d in (self.result_dir, self.weights_path, self.metrics_path, self.samples_path):
+            makedirs(d, exist_ok=True)
+        with open(join(self.result_dir, "last_config.json"), "w") as fh:
+            json.dump(config, fh)
+        logging_setup(self.result_dir)
+        self.log = logging.getLogger("hyperpocket_tpu_torch")
+
+        # training.param_dtype = "float64" is the trajectory-parity mode (CPU)
+        self.model = model_from_config(config, torch.Generator().manual_seed(seed)).to(
+            device=self.device, dtype=_DTYPES[tr.get("param_dtype", "float32")])
+        self.loss_coef = float(tr.get("loss_coef", 0.05))
+        self.max_epoch = int(tr["max_epoch"])
+        self.save_freq = int(tr.get("state_save_frequency", 1))
+        self.min_save_epoch = int(tr.get("min_save_epoch", 0))
+        self.optimizer = make_optimizer(tr["optimizer"], trainable_parameters(self.model))
+        base_lr = float(tr["optimizer"].get("hyperparams", {}).get("lr", 1e-3))
+        self.lr_schedule = make_lr_schedule(tr.get("lr_scheduler"), base_lr)
+        self.updates = 0  # optimizer updates made: the optax state's count
+
+        self.train_dataset, self.val_dataset_dict, self.test_dataset_dict = get_datasets(
+            config["dataset"])
+        dl_cfg = tr.get("dataloader", {})
+        tcfg = dict(dl_cfg.get("train", {"batch_size": 8}))
+        vcfg = dict(dl_cfg.get("val", {"batch_size": 8}))
+        self.train_loader = BatchLoader(
+            self.train_dataset, tcfg.get("batch_size", 8), shuffle=tcfg.get("shuffle", True),
+            drop_last=tcfg.get("drop_last", True), num_workers=tcfg.get("num_workers", 8),
+            seed=seed)
+        for cat, ds in self.val_dataset_dict.items():
+            if len(ds) == 0:
+                self.log.info("val category %s: no items in split, skipped", cat)
+        self.val_loaders = {
+            cat: BatchLoader(ds, vcfg.get("batch_size", 8), shuffle=vcfg.get("shuffle", False),
+                             drop_last=vcfg.get("drop_last", False),
+                             num_workers=vcfg.get("num_workers", 8), seed=seed + 1)
+            for cat, ds in self.val_dataset_dict.items() if len(ds) > 0
+        }
+        self.profile_cfg = tr.get("profile", {})
+        ckpt_cfg = tr.get("checkpoint", {})
+        self._async_ckpt = (ckpt.AsyncCheckpointer(bool(ckpt_cfg.get("drop_if_busy", True)))
+                            if ckpt_cfg.get("async", False) else None)
+
+        # training.compute_dtype_switch = {"epoch": N, "compute_dtype": "float32"}:
+        # epochs <= N run training.compute_dtype, later ones the switch dtype;
+        # parameters and optimizer state are the fp32 masters either way
+        sw = tr.get("compute_dtype_switch")
+        self._dtype_switch = (int(sw["epoch"]), str(sw.get("compute_dtype", "float32"))) if sw else None
+        self.train_step = make_train_step(self.model, self.optimizer, self.loss_coef)
+        self.val_step = make_val_step(self.model, self.loss_coef)
+        self.uses_missing = self.model.mode != "hyper_rec"
+        self.epoch_mode = str(tr.get("epoch_mode", "step"))
+        if self.epoch_mode not in ("step", "scan"):
+            raise ValueError(f"training.epoch_mode must be 'step' or 'scan', got {self.epoch_mode!r}")
+        if self.epoch_mode == "scan":
+            self.log.info("epoch_mode 'scan' runs the step loop in the port: the JAX package "
+                          "holds both loops to one trajectory")
+        self.scan_invocations = 0
+
+        self.train_losses: list = []
+        self.val_losses: list = []
+        self.best_epoch_loss = np.inf
+        self.start_epoch = 1
+        self.injection_provider = None
+        self.last_step_losses: np.ndarray | None = None
+        self._maybe_restore()
+
+    # ------------------------------------------------------------------
+    def _next_generator(self) -> torch.Generator:
+        """A generator on the device, seeded from the next value of the step counter."""
+        self._seed_counter += 1
+        return torch.Generator(device=self.device).manual_seed(self._seed_counter & 0xFFFFFFFF)
+
+    def _maybe_restore(self) -> None:
+        latest = ckpt.find_latest_resumable_epoch(self.weights_path, self.metrics_path)
+        if latest <= 0:
+            return
+        epoch, self.updates = ckpt.restore_model_state(
+            self.weights_path, self.metrics_path, latest, "latest", self.model, self.optimizer)
+        self.train_losses, self.val_losses, self.best_epoch_loss = ckpt.restore_metrics(
+            self.metrics_path, epoch)
+        s_path = join(self.weights_path, f"{epoch:05}_S.json")
+        if exists(s_path):
+            with open(s_path) as fh:
+                sched_state = json.load(fh)
+            if "seed_counter" in sched_state:
+                self._seed_counter = int(sched_state["seed_counter"])
+        self.start_epoch = epoch + 1
+        self.log.info("restored epoch %d", epoch)
+
+    def _maybe_switch_dtype(self, epoch: int) -> None:
+        """Cross the ``compute_dtype_switch`` boundary once (a resumed run
+        crosses it the same way, since ``run`` checks every epoch)."""
+        if self._dtype_switch is None:
+            return
+        sw_epoch, sw_dtype = self._dtype_switch
+        if epoch <= sw_epoch or self.model.compute_dtype == sw_dtype:
+            return
+        self.model.compute_dtype = sw_dtype
+        self.log.info("compute_dtype switched to %s at epoch %d", sw_dtype, epoch)
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _batch(self, existing, missing, gt):
+        """One loader batch on the device; HyperRec and scalar placeholders drop missing."""
+        if not self.uses_missing or not isinstance(missing, np.ndarray) or missing.ndim != 3:
+            missing = None
+        return (self._to_device(existing), None if missing is None else self._to_device(missing),
+                self._to_device(gt))
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> tuple[EpochStats, tuple | None]:
+        """One epoch of train steps; the stats are the true means over its steps."""
+        set_learning_rate(self.optimizer, self.lr_schedule(epoch))
+        rows, latest = [], None
+        for existing, missing, gt, _ in self.train_loader.epoch(epoch):
+            ex, mi, g = self._batch(existing, missing, gt)
+            inject = {}
+            if self.injection_provider is not None:
+                inject = {k: self._to_device(v)
+                          for k, v in self.injection_provider(epoch, len(rows)).items()}
+            loss, loss_r, loss_k, rec = self.train_step(
+                ex, mi, g, self._next_generator(), float(epoch), int(gt.shape[1]), **inject)
+            self.updates += 1
+            rows.append(torch.stack([loss, loss_r, loss_k]))
+            latest = (existing, gt, rec)
+        # one device fetch per epoch
+        self.last_step_losses = (torch.stack(rows).cpu().numpy() if rows else np.zeros((0, 3)))
+        sums = self.last_step_losses.sum(axis=0) if rows else np.zeros(3)
+        if latest is not None:
+            latest = (latest[0], latest[1], latest[2].float().cpu().numpy())
+        return EpochStats(*(sums / max(len(rows), 1))), latest
+
+    def val_epoch(self, epoch: int):
+        """Per-category no-grad loss and one sample per category (epoch_loops.py:49-83)."""
+        val_losses: dict[str, np.ndarray] = {}
+        val_samples: dict[str, tuple | None] = {}
+        for cat, loader in self.val_loaders.items():
+            losses, last = [], None
+            for existing, missing, gt, _ in loader.epoch(epoch):
+                ex, mi, g = self._batch(existing, missing, gt)
+                loss, rec = self.val_step(ex, mi, g, self._next_generator(), float(epoch),
+                                          int(gt.shape[1]))
+                losses.append(loss)
+                last = (existing[0], gt[0], rec)
+            total = float(torch.stack(losses).sum()) if losses else 0.0
+            if last is not None:
+                last = (last[0], last[1], last[2][0].float().cpu().numpy())
+            val_losses[cat] = np.array([total / max(len(losses), 1)])
+            val_samples[cat] = last
+        total = sum(val_losses.values()) / len(val_losses) if val_losses else np.array([0.0])
+        val_losses["total"] = total
+        return val_losses, val_samples
+
+    # ------------------------------------------------------------------
+    def run(self, *, plot_samples: bool = True, tg_logger=None):
+        """Epochs ``start_epoch..max_epoch``: train, plot, validate, save."""
+        profiler = None
+        if self.profile_cfg.get("enable"):
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.start()
+        for epoch in range(self.start_epoch, self.max_epoch + 1):
+            self._maybe_switch_dtype(epoch)
+            t0 = time.monotonic()
+            stats, latest = self.train_epoch(epoch)
+            if (profiler is not None
+                    and epoch >= self.start_epoch + self.profile_cfg.get("epochs", 1) - 1):
+                self._write_trace(profiler)
+                profiler = None
+            self.train_losses.append(np.array([stats.loss_all, stats.loss_r, stats.loss_kld]))
+            msg = (f"[{epoch}/{self.max_epoch}] Loss_ALL: {stats.loss_all:.4f} "
+                   f"Loss_R: {stats.loss_r:.4f} Loss_E: {stats.loss_kld:.4f} "
+                   f"Time: {time.monotonic() - t0:.1f}s")
+            self.log.info(msg)
+
+            plots = []
+            if plot_samples and latest is not None:
+                from hyperpocket_tpu_torch.utils.plotting import save_plot
+
+                l_existing, l_gt, l_rec = latest
+                for k in range(min(5, l_rec.shape[0])):
+                    plots.append(save_plot(l_existing[k].T, epoch, k, self.samples_path, "existing"))
+                    plots.append(save_plot(l_rec[k].T, epoch, k, self.samples_path, "reconstructed"))
+                    plots.append(save_plot(l_gt[k].T, epoch, k, self.samples_path, "gt"))
+            if tg_logger is not None:
+                tg_logger.log_images(plots[:9], msg)
+
+            epoch_val_losses, epoch_val_samples = self.val_epoch(epoch)
+            is_new_best = float(epoch_val_losses["total"][0]) < self.best_epoch_loss
+            if is_new_best:
+                self.best_epoch_loss = float(epoch_val_losses["total"][0])
+            self.val_losses.append(epoch_val_losses["total"])
+            val_msg = f"val results[{self.loss_coef}*our_cd]:\n" + "".join(
+                f"{k}: {v}\n" for k, v in epoch_val_losses.items())
+            if is_new_best:
+                val_msg += "new best epoch"
+            self.log.info(val_msg)
+
+            if plot_samples:
+                from hyperpocket_tpu_torch.utils.plotting import save_plot
+
+                for cat, sample in epoch_val_samples.items():
+                    if sample is None:
+                        continue
+                    save_plot(sample[0].T, epoch, cat, self.samples_path, "val_existing")
+                    save_plot(sample[2].T, epoch, cat, self.samples_path, "val_rec")
+                    save_plot(sample[1].T, epoch, cat, self.samples_path, "val_gt")
+
+            if (epoch % self.save_freq == 0 or is_new_best) and epoch > self.min_save_epoch:
+                sched_state = {"epoch": epoch, "lr": self.lr_schedule(epoch),
+                               "seed_counter": int(self._seed_counter)}
+                args = (self.weights_path, self.metrics_path, epoch, self.model, self.optimizer,
+                        self.updates, sched_state, self.train_losses, self.val_losses)
+                if self._async_ckpt is not None:
+                    saved = self._async_ckpt.submit(*args)
+                    self.log.debug("Epoch: %s %s", epoch,
+                                   "save submitted" if saved else "save deferred (writer busy)")
+                else:
+                    ckpt.save_checkpoint(*args)
+                    self.log.debug("Epoch: %s saved", epoch)
+                if tg_logger is not None:
+                    tg_logger.log(f"Epoch: {epoch} saved")
+        if profiler is not None:
+            self._write_trace(profiler)
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+        return self.train_losses, self.val_losses
+
+    def _write_trace(self, profiler) -> None:
+        """Stop the profiler and write its Chrome trace to ``training.profile.dir``
+        (default ``<results>/trace``)."""
+        profiler.stop()
+        trace_dir = self.profile_cfg.get("dir") or join(self.result_dir, "trace")
+        makedirs(trace_dir, exist_ok=True)
+        profiler.export_chrome_trace(join(trace_dir, "trace.json"))
+        self.log.info("profiler trace written to %s", trace_dir)

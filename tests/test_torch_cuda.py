@@ -317,3 +317,219 @@ def test_metric_dispatchers_launch_kernels_at_any_shape(cuda, shape):
                nn.nn_distance_auto):
         with pytest.raises(ValueError, match="fp32"):
             fn(a.double(), c.double())
+
+
+@pytest.mark.parametrize("n, m", [(1000, 1000), (1000, 2048)])
+def test_chamfer_loss_auto_launches_kernels_at_any_count(cuda, n, m):
+    """fp32 CUDA clouds take K1 (under grad) / K3 (without) at counts off the
+    128 grid; fp64 keeps the plain chain."""
+    from hyperpocket_tpu_torch.ops import nn
+
+    gts, preds = _points(4, n, 19), _points(4, m, 20).requires_grad_()
+    before = nn.nn_one_direction.launches, nn.nn_min_fused.launches
+    loss = nn.chamfer_loss_auto(gts, preds)
+    (grad,) = torch.autograd.grad(loss, preds)
+    with torch.no_grad():
+        value = nn.chamfer_loss_auto(gts, preds)
+    torch.cuda.synchronize()
+    assert (nn.nn_one_direction.launches - before[0], nn.nn_min_fused.launches - before[1]) == (2, 1)
+    want = chamfer_loss(gts.double(), preds.detach().double())
+    assert abs(loss.item() - want.item()) <= 1e-5 * want.item()
+    assert abs(value.item() - want.item()) <= 1e-5 * want.item()
+    assert bool(torch.isfinite(grad).all())
+    before = nn.nn_one_direction.launches, nn.nn_min_fused.launches
+    nn.chamfer_loss_auto(gts.double(), preds.detach().double())
+    assert (nn.nn_one_direction.launches, nn.nn_min_fused.launches) == before
+
+
+# K8 (ops/trunk_pool.py::trunk_pooled_argmax): the pooled values are K4's,
+# bit for bit (one layer chain), and the index is the first point where the
+# kernel's own per-point values reach them: K4 on a cloud of 8 copies of one
+# point gives that point's values, the same bits as inside any tile, and
+# torch.max over them (first index of equal maxima) must give K8's values
+# and indices exactly. Against the plain version (another summation order,
+# so a layer may round one bf16 step apart and carry that through the
+# layers after it): pooled within BF16_ATOL, the plain value at the kernel's
+# point within BF16_ATOL of the plain maximum, and the indices equal where
+# the plain maximum leads its channel by more than 2 BF16_ATOL.
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+    return torch.exp2(e - 7)
+
+
+def _per_point_kernel_values(layers, x):
+    """K4's values at every point of x: (B, N, 512) bf16."""
+    b, n = x.shape[:2]
+    copies = x.reshape(b * n, 1, 3).expand(b * n, 8, 3).contiguous()
+    return trunk_pooled(layers, copies).view(b, n, 512)
+
+
+def _check_argmax(layers, x, pooled, idx):
+    from hyperpocket_tpu_torch.ops.trunk_pool import _stack_reference
+
+    values = _per_point_kernel_values(layers, x).float()
+    own_max, own_idx = torch.max(values, dim=1)
+    assert torch.equal(pooled.float(), own_max) and torch.equal(idx, own_idx.int())
+    stack = _stack_reference(layers, x).float()  # (B, N, 512)
+    top2 = stack.topk(2, dim=1).values
+    want_max, want_idx = torch.max(stack, dim=1)
+    assert (pooled.float() - want_max).abs().max().item() <= BF16_ATOL
+    at_idx = torch.gather(stack, 1, idx.long()[:, None, :])[:, 0]
+    assert (want_max - at_idx).max().item() <= BF16_ATOL
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * BF16_ATOL
+    assert torch.equal(idx[clear], want_idx[clear].int())
+
+
+@pytest.mark.parametrize("shape", [(64, 1024), (3, 200), (1, 8), (2, 72)])
+def test_trunk_argmax_kernel_matches_reference(layers, shape):
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
+
+    x = _cloud(*shape)
+    before = trunk_pooled_argmax.launches
+    pooled, idx = trunk_pooled_argmax(layers, x)
+    torch.cuda.synchronize()
+    assert trunk_pooled_argmax.launches == before + 1
+    assert pooled.dtype == torch.bfloat16 and idx.dtype == torch.int32
+    assert pooled.shape == idx.shape == (shape[0], 512)
+    assert bool((idx >= 0).all()) and bool((idx < shape[1]).all())
+    assert torch.equal(pooled, trunk_pooled(layers, x))
+    _check_argmax(layers, x, pooled, idx)
+    again = trunk_pooled_argmax(layers, x)
+    assert torch.equal(again[0], pooled) and torch.equal(again[1], idx)
+
+
+@pytest.mark.parametrize("base_points", [64, 128, 200])
+def test_trunk_argmax_first_index_of_duplicates(layers, base_points):
+    """Every point twice, base_points apart (in one tile, or in another tile):
+    the first copy's index wins."""
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
+
+    base = _cloud(2, base_points, seed=2)
+    x = torch.cat([base, base], dim=1).contiguous()
+    pooled, idx = trunk_pooled_argmax(layers, x)
+    assert int(idx.max()) < base_points
+    base_pooled, base_idx = trunk_pooled_argmax(layers, base)
+    assert torch.equal(pooled, base_pooled) and torch.equal(idx, base_idx)
+
+
+def test_trunk_argmax_kernel_rejects_what_it_cannot_take(layers):
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
+
+    x = _cloud(2, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        trunk_pooled_argmax(layers, x.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        trunk_pooled_argmax(layers, _cloud(2, 60))
+
+
+# K11 (ops/head_adam.py::head_adam_update): the kernel sums dw over the batch
+# in order, cuBLAS in another, so dw differs by fp32 rounding. With a state
+# at count > 1 the update is smooth in dw: p within two fp32 steps of p plus
+# 1e-5 lr on all but 1e-4 of the entries, and within 2 lr everywhere (a
+# near-zero dw may flip the update's sign); m and v within one bf16 step
+# (bf16) or 1e-6 relative (fp32), plus 1e-6 of the tensor's largest entry
+# for values that cancel to near zero.
+
+
+def _head_adam_close(p, m, v, want, lr):
+    """The bounds above; returns the share of p beyond the tight bound."""
+    err = (p - want[0]).abs()
+    tight = 2 * torch.finfo(torch.float32).eps * want[0].abs() + 1e-5 * lr
+    assert err.max().item() <= 2 * lr
+    share = (err > tight).float().mean().item()
+    assert share <= 1e-4
+    for got_t, want_t in ((m, want[1]), (v, want[2])):
+        diff = (got_t.float() - want_t.float()).abs()
+        floor = 1e-6 * want_t.float().abs().max()
+        if got_t.dtype == torch.bfloat16:
+            assert bool((diff <= _bf16_step(want_t.float()) + floor).all())
+        else:
+            assert bool((diff <= 1e-6 * want_t.abs() + floor).all())
+    return share
+
+
+def _head_state(n, k, b, moment_dtype, in_dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((b, k), generator=g, device="cuda").to(in_dtype)
+    dout = (torch.randn((b, n), generator=g, device="cuda") * 1e-2).to(in_dtype)
+    p = torch.randn((n, k), generator=g, device="cuda") * 0.02
+    m = (torch.randn((n, k), generator=g, device="cuda") * 1e-3).to(moment_dtype)
+    v = (torch.rand((n, k), generator=g, device="cuda") * 1e-5).to(moment_dtype)
+    return h, dout, p, m, v
+
+
+@pytest.mark.parametrize("n, k, b", [(339, 256, 8), (19011, 2048, 64), (40, 64, 70)])
+@pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_head_adam_kernel_matches_reference(cuda, n, k, b, moment_dtype, in_dtype):
+    from hyperpocket_tpu_torch.ops.head_adam import (
+        adam_scalars,
+        head_adam_update,
+        head_adam_update_reference,
+    )
+
+    lr = 1e-4
+    sc = adam_scalars(lr, 0.9, 0.999, 1e-8, 5)
+    h, dout, p, m, v = _head_state(n, k, b, moment_dtype, in_dtype)
+    want = head_adam_update_reference(h, dout, p.clone(), m.clone(), v.clone(), sc)
+    before = head_adam_update.launches
+    got = head_adam_update(h, dout, p, m, v, sc)
+    torch.cuda.synchronize()
+    assert head_adam_update.launches == before + 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    _head_adam_close(p, m, v, want, lr)
+    # a fixed summation order: the same inputs give the same bits
+    h2, dout2, p2, m2, v2 = _head_state(n, k, b, moment_dtype, in_dtype)
+    head_adam_update(h2, dout2, p2, m2, v2, sc)
+    assert torch.equal(p2, p) and torch.equal(m2, m) and torch.equal(v2, v)
+
+
+def test_head_adam_kernel_rejects_what_it_cannot_take(cuda):
+    from hyperpocket_tpu_torch.ops.head_adam import adam_scalars, head_adam_update
+
+    sc = adam_scalars(1e-4, 0.9, 0.999, 1e-8, 1)
+    h, dout, p, m, v = _head_state(40, 64, 4, torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        head_adam_update(h.cpu(), dout, p, m, v, sc)
+    with pytest.raises(ValueError, match="share"):
+        head_adam_update(h, dout, p, m, v.to(torch.bfloat16), sc)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        head_adam_update(h[:, :62], dout, p[:, :62].contiguous(), m[:, :62].contiguous(),
+                         v[:, :62].contiguous(), sc)
+
+
+def test_fused_training_trunk_launches_k8_once(monkeypatch):
+    """HPCD_TRUNK_FUSED_FWD=1: a bf16 encoder's training trunk launches K8
+    once; its output and gradients follow the unfused trunk's (bf16 rounding
+    of two summation orders: outputs within 5% of their scale, gradients
+    within 10% relative L2)."""
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    enc = Encoder(128, generator=torch.Generator().manual_seed(3)).cuda()
+    x = _cloud(4, 1024, seed=4)
+
+    def run(fused):
+        if fused:
+            monkeypatch.setenv("HPCD_TRUNK_FUSED_FWD", "1")
+        else:
+            monkeypatch.delenv("HPCD_TRUNK_FUSED_FWD", raising=False)
+        enc.zero_grad(set_to_none=True)
+        bf = {n: p.to(torch.bfloat16) for n, p in enc.named_parameters()}
+        mu = torch.func.functional_call(enc, bf, (x,), {"is_vae": False})
+        mu.float().square().sum().backward()
+        return mu.float().detach(), [p.grad.clone() for p in enc.conv.parameters()]
+
+    before = trunk_pooled_argmax.launches
+    got, got_grads = run(True)
+    torch.cuda.synchronize()
+    assert trunk_pooled_argmax.launches == before + 1
+    want, want_grads = run(False)
+    assert trunk_pooled_argmax.launches == before + 1
+    assert (got - want).abs().max().item() <= 0.05 * want.abs().max().item()
+    for g, w in zip(got_grads, want_grads):
+        assert (g - w).norm().item() <= 0.1 * w.norm().item()

@@ -479,8 +479,9 @@ def test_cli_runs_experiments_with_latent_prior(models, tmp_path, root_logging):
     np.testing.assert_allclose(ctx.latent_prior.scale_tril, want.scale_tril, rtol=RTOL_METRIC,
                                atol=1e-6)
 
-    with pytest.raises(NotImplementedError, match="Trainer"):
-        cli.main({**config, "mode": "training"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="Telegram"):
+        cli.main({**config, "mode": "training", "telegram_logger": {"enable": True}},
+                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(config)

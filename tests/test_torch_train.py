@@ -215,10 +215,16 @@ def test_optimizer_steps_match_optax_fp64(name):
 
 
 def test_moment_dtype_is_not_ported_yet():
+    """moment_dtype is ported: it builds the narrow-moment Adam, and
+    with amsgrad it raises as the JAX package does (tests/test_torch_trainer.py
+    holds its updates to scale_by_adam_lowp)."""
     p = [torch.zeros(2, requires_grad=True)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer({"type": "Adam", "hyperparams": {"moment_dtype": "bfloat16"}}, p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    opt = optim.make_optimizer({"type": "Adam", "hyperparams": {"moment_dtype": "bfloat16"}}, p)
+    assert isinstance(opt, optim.AdamLowp)
+    assert opt.param_groups[0]["moment_dtype"] == torch.bfloat16
+    opt = optim.make_optimizer({"type": "AdamW"}, p, moment_dtype="bfloat16")
+    assert isinstance(opt, optim.AdamLowp) and opt.param_groups[0]["decoupled"]
+    with pytest.raises(ValueError, match="amsgrad"):
         optim.make_optimizer({"type": "Adam", "hyperparams": {"amsgrad": True}}, p,
                              moment_dtype="bfloat16")
     with pytest.raises(ValueError, match="unsupported optimizer"):

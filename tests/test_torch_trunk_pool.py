@@ -149,7 +149,7 @@ def test_build_failure_raises(tmp_path):
 
 def test_build_hash_covers_sources_and_flags(monkeypatch, tmp_path):
     assert [p.name for p in _build.sources()] == [
-        "emd_match_cost.cu", "emd_match_cost_grad.cu", "nn_min_fused.cu",
+        "emd_match_cost.cu", "emd_match_cost_grad.cu", "head_adam.cu", "nn_min_fused.cu",
         "nn_one_direction.cu", "trunk_pool.cu"]
     base = _build.source_hash()
     assert base == _build.source_hash() and len(base) == 16
