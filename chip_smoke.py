@@ -8,7 +8,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
 Phases, each fatal on any error:
 
 1. device: CUDA must be present; prints the card's name and power limit
-   (``nvidia-smi``) and turns TF32 off for fp32 matmuls and cuDNN.
+   (``nvidia-smi``), with its SM clock, power draw and temperature at the
+   start and at the end of the run, and turns TF32 off for fp32 matmuls and
+   cuDNN.
 2. build: compiles ``hyperpocket_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one nvcc per source, all started together.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
@@ -36,9 +38,10 @@ Phases, each fatal on any error:
 7. Chamfer value and gradient at B=64, N=M=2048: the streaming loss (K1
    twice, the gather/scatter backward) against the plain
    ``ops/chamfer.py::chamfer_loss`` under autograd: value within 1e-5
-   relative; where the two pick different argmins, the two keys must be a
-   near tie (exact distances within 1e-6), and every point no such flip
-   touches has its gradient within 5e-3; both timed.
+   relative; where the two pick different argmins (or the plain one splits
+   a tie of its rounded distances), the keys must be a near tie (exact
+   distances within 1e-6), and every point no such flip touches has its
+   gradient within 5e-3; both timed.
 8. training slice: the chair config at full width, the same weights, Adam
    and ``loss_coef`` from the config, B=64 (existing and missing 1024 points,
    gt 2048). fp32: the first step's gradients through the kernels against
@@ -98,6 +101,30 @@ Phases, each fatal on any error:
 15. fused train step: 3 steps of ``make_fused_train_step`` (K11 once a step)
    against ``make_train_step`` at full width, B=64, bf16, from the same
    weights and draws: step-0 losses within 1e-6, all within 1e-2.
+16. K5 (``nn_fused_planes``) and the partial-to-completion NN path: the
+   chair served in fp32 completes B=64 halves of 1024 points into 2048, then
+   ``ops.nn_distance_pallas(existing, completion)`` and
+   ``ops.chamfer_loss_auto`` under grad with their backward (K2): K5 must
+   launch once each and K1 never, the gradient that of ``nn_backward``. K5
+   against its plain version and against K1 run once each way at B=64 with
+   1024x2048, 2048x1024 and 2048x2048, ragged clouds, more keys than one
+   staged chunk, duplicated points on both sides and clouds of one repeated
+   point: distances bit-equal, indices equal. Timed at 1024x2048 and 2048²
+   beside K1 twice, the plain version and cdist + min/argmin both ways.
+17. K9 (``chamfer_loss_grad``) through ``chamfer_loss_fused`` at B=64,
+   2048x2048 and 2048x1024: one launch per value and gradient; value and
+   per-sample losses within 1e-5 relative of K3's; both fields within 1e-5
+   of their largest entry against ``nn_backward`` on K5's indices; the
+   gradient of 3 loss 3x the gradient; against the plain autograd by phase
+   7's near-tie rules. Timed beside phase 7's route and the plain version.
+18. K10 (``decode_batch``) on the served model's own flat weights (the
+   hypernetwork's output for B=256 and B=64 requests, bf16 and fp32) and
+   ball points, N=2048, through ``ops.decode_batch`` (one launch each):
+   within 2e-5 (fp32) or 0.05 (bf16) of the output's largest entry of the
+   plain version and of the model's ``bmm`` chain, with the bf16 steps to
+   the plain version printed; the JAX tests' 8 channel/bias cases in fp32,
+   elementwise within 2e-5. Timed beside the ``bmm`` chain and the plain
+   version.
 
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
 B=256 and B=64, one fp32 and one bf16 train step at B=64 (the bf16 one also
@@ -186,6 +213,14 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def clock_line() -> str:
+    """The card's SM clock, power draw and temperature now (``nvidia-smi``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
 def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> float:
     """Median over windows of the per-call device time, from CUDA events."""
     for _ in range(warmup):
@@ -209,6 +244,18 @@ def bound(bytes_moved: float, op_seconds: float) -> dict:
     byte_s = bytes_moved / HBM_BYTES_S
     return {"bound_ms": 1e3 * max(byte_s, op_seconds),
             "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
+
+
+def pair_bound(q: torch.Tensor, k: torch.Tensor, out_bytes: int, per_pair: int) -> dict:
+    """An NN sweep: ``per_pair`` issued instructions a (query, key) pair; the
+    clouds read once and ``out_bytes`` written once."""
+    pairs = q.shape[0] * q.shape[1] * k.shape[1]
+    return bound(4 * (q.numel() + k.numel()) + out_bytes, per_pair * pairs / FP32_LANE_RATE)
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
 def trunk_bound(batch: int, n: int, out_bytes: int) -> dict:
@@ -443,9 +490,9 @@ def head_adam_vs_plain(device) -> dict:
            "share_beyond_tight": (err > tight).float().mean().item()}
     for name, got, ref in (("m", m, want[1]), ("v", v, want[2])):
         ref = ref.float()
-        step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
         diff = (got.float() - ref).abs()
-        res[f"{name}_beyond_one_step"] = int((diff > step + 1e-6 * ref.abs().max()).sum())
+        res[f"{name}_beyond_one_step"] = int((diff > _bf16_step(ref) + 1e-6 * ref.abs().max())
+                                             .sum())
         res[f"{name}_max_abs_err"] = diff.max().item()
     print(f"K11 vs plain N={HEAD_N} K={HEAD_K} B={TRAIN_BATCH}: {json.dumps(res)}")
     check(bool(torch.isfinite(p).all()), "K11: non-finite weights")
@@ -636,34 +683,81 @@ def nn_kernels_vs_plain(device) -> dict:
     # each (query, key) pair: 3 subtractions, 3 multiplications and 2 additions,
     # then a compare and a select (K1: min and index; K3: two minima), all
     # issued one instruction a lane; the reads are a few MB
-    pair_bound = bound(4 * (q.numel() + k.numel()) + 8 * q.shape[0] * q.shape[1],
-                       10 * q.shape[0] * q.shape[1] * k.shape[1] / FP32_LANE_RATE)
+    k1_bound = pair_bound(q, k, 8 * q.shape[0] * q.shape[1], 10)
     times = {
         "nn_one_direction": {"ms": cuda_ms(lambda: nn_one_direction(q, k)),
                              "plain_ms": cuda_ms(lambda: nn_one_direction_reference(q, k),
                                                  iters=3),
                              "library_ms": cuda_ms(lambda: sqdist().min(dim=2), iters=3),
-                             **pair_bound},
+                             **k1_bound},
         "nn_min_fused": {"ms": cuda_ms(lambda: nn_min_fused(q, k)),
                          "plain_ms": cuda_ms(lambda: nn_min_fused_reference(q, k), iters=3),
-                         "library_ms": cuda_ms(library_k3, iters=3), **pair_bound},
+                         "library_ms": cuda_ms(library_k3, iters=3), **k1_bound},
     }
     print(f"nn kernel timing B=64 N=M=2048: {json.dumps(times)}")
     return {"errs": errs, "times": times}
 
 
-def chamfer_vs_plain(device) -> dict:
-    """The streaming Chamfer (K1 + the gather/scatter backward) vs the plain autograd.
+def grad_vs_plain(gts, preds, g_got, g_want, name: str) -> dict:
+    """A kernel route's Chamfer gradient w.r.t. ``preds`` against the plain autograd's.
 
-    The plain loss finds its argmins through the |x|^2 + |y|^2 - 2x.y
+    The plain loss finds its minima through the |x|^2 + |y|^2 - 2x.y
     expansion, whose rounding (~1e-7 here) can pick the other of two keys
-    at nearly the same distance; that moves the gradient of the points
-    involved by up to twice the distance between the two keys. Such a
-    flip must be a near tie (the two candidates' exact distances within
-    NEAR_TIE); every point no flip touches is held to 5e-3.
+    at nearly the same distance, or round both to the same value, where
+    ``amin``'s gradient splits evenly between them; either moves the
+    gradient of the points involved by up to twice the distance between the
+    two keys. A row (a gt over the preds, or a pred over the gts) whose
+    plain minimum set is not exactly the kernels' first argmin counts as a
+    flip: each key in that set must be a near tie (its exact distance within
+    NEAR_TIE of the kernels' minimum), and every pred no flip touches is held
+    to 5e-3.
     """
-    from hyperpocket_tpu_torch.ops.chamfer import batch_pairwise_sqdist, chamfer_loss
-    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_streaming, nn_one_direction
+    from hyperpocket_tpu_torch.ops.chamfer import batch_pairwise_sqdist
+    from hyperpocket_tpu_torch.ops.nn import _sqdist_reference, nn_one_direction
+
+    with torch.no_grad():
+        preds = preds.detach()
+        d1, i1 = nn_one_direction(gts, preds)
+        d2, i2 = nn_one_direction(preds, gts)
+        p = batch_pairwise_sqdist(gts, preds)  # (B, N, M), the plain loss's values
+        set1 = p == p.amin(dim=2, keepdim=True)  # each gt's plain minimum set
+        set2 = p == p.amin(dim=1, keepdim=True)  # each pred's
+        del p
+        own1 = torch.zeros_like(set1).scatter_(2, i1.long()[..., None], True)
+        own2 = torch.zeros_like(set2).scatter_(1, i2.long()[:, None, :], True)
+        off1 = (set1 != own1).any(dim=2)  # (B, N)
+        off2 = (set2 != own2).any(dim=1)  # (B, M)
+        exact = _sqdist_reference(gts, preds)  # the kernels' arithmetic
+        gaps = torch.cat([(exact - d1[..., None])[set1 & off1[..., None]],
+                          (exact - d2[:, None, :])[set2 & off2[:, None, :]]])
+        del exact
+        # a pred's own minimum moved, or a gt's gradient moved to or from it
+        touched = off2 | ((set1 | own1) & off1[..., None]).any(dim=1)
+        del set1, set2, own1, own2
+        err = (g_got - g_want).abs().amax(dim=2)
+        res = {"grad_err": err[~touched].max().item(), "grad_err_all": err.max().item(),
+               "grad_rel_l2": ((g_got - g_want).norm() / g_want.norm()).item()}
+    n_points = off1.numel() + off2.numel()
+    res["argmin_flips"] = int(off1.sum() + off2.sum())
+    res["max_tie_gap"] = gaps.max().item() if gaps.numel() else 0.0
+    print(f"{name}: {res['argmin_flips']} argmin flips or split ties of {n_points} points, "
+          f"largest exact distance gap {res['max_tie_gap']!r}; grad max_abs_err "
+          f"{res['grad_err']!r} on the {int((~touched).sum())} preds no flip touches, "
+          f"{res['grad_err_all']!r} over all, relative L2 {res['grad_rel_l2']!r}")
+    check(bool(torch.isfinite(g_got).all()), f"{name}: non-finite Chamfer gradient")
+    check(res["max_tie_gap"] <= NEAR_TIE,
+          f"{name}: an argmin flip is not a near tie: gap {res['max_tie_gap']} > {NEAR_TIE}")
+    check(res["argmin_flips"] <= 1e-3 * n_points, f"{name}: {res['argmin_flips']} argmin flips")
+    check(res["grad_err"] <= CHAMFER_GRAD_ATOL,
+          f"{name}: Chamfer gradient error {res['grad_err']} > {CHAMFER_GRAD_ATOL}")
+    return res
+
+
+def chamfer_vs_plain(device) -> dict:
+    """The streaming Chamfer (K1 + the gather/scatter backward) vs the plain autograd:
+    the value within CHAMFER_RTOL, the gradient by ``grad_vs_plain``'s rules."""
+    from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_streaming
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     gts = torch.randn((TRAIN_BATCH, N_OUT, 3), generator=gen, device=device) * 0.3
@@ -677,50 +771,15 @@ def chamfer_vs_plain(device) -> dict:
     got, g_got = value_and_grad(chamfer_loss_streaming)
     want, g_want = value_and_grad(chamfer_loss)
     rel = abs(got.item() - want.item()) / abs(want.item())
-
-    with torch.no_grad():
-        p = batch_pairwise_sqdist(gts, preds)
-        plain_i1, plain_i2 = p.argmin(dim=2), p.argmin(dim=1)
-        del p
-        d1, i1 = nn_one_direction(gts, preds)
-        d2, i2 = nn_one_direction(preds.detach(), gts)
-        i1, i2 = i1.long(), i2.long()
-
-        def exact(a, b, idx):  # the kernels' arithmetic to the keys at idx
-            diff = torch.gather(b, 1, idx[..., None].expand(-1, -1, 3)) - a
-            sq = diff * diff
-            return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
-
-        flips1, flips2 = i1 != plain_i1, i2 != plain_i2
-        gaps = torch.cat([(exact(gts, preds, plain_i1) - d1)[flips1],
-                          (exact(preds, gts, plain_i2) - d2)[flips2]])
-        touched = flips2.clone()  # a pred's own NN flipped, or a gt's NN moved to or from it
-        rows = torch.arange(TRAIN_BATCH, device=device)[:, None].expand_as(i1)
-        touched[rows[flips1], i1[flips1]] = True
-        touched[rows[flips1], plain_i1[flips1]] = True
-        err = (g_got - g_want).abs().amax(dim=2)
-        grad_err = err[~touched].max().item()
-        grad_err_all = err.max().item()
-        grad_rel_l2 = ((g_got - g_want).norm() / g_want.norm()).item()
-    n_flips = int(flips1.sum() + flips2.sum())
-    max_gap = gaps.max().item() if n_flips else 0.0
-    print(f"chamfer B=64: value {got.item()!r} vs plain {want.item()!r} (relative {rel!r}); "
-          f"{n_flips} argmin flips of {flips1.numel() + flips2.numel()} points, largest exact "
-          f"distance gap {max_gap!r}; grad max_abs_err {grad_err!r} on the "
-          f"{int((~touched).sum())} points no flip touches, {grad_err_all!r} over all, "
-          f"relative L2 {grad_rel_l2!r}")
-    check(bool(torch.isfinite(g_got).all()), "non-finite Chamfer gradient")
+    print(f"chamfer B=64: value {got.item()!r} vs plain {want.item()!r} (relative {rel!r})")
     check(rel <= CHAMFER_RTOL, f"Chamfer value relative error {rel} > {CHAMFER_RTOL}")
-    check(max_gap <= NEAR_TIE, f"an argmin flip is not a near tie: gap {max_gap} > {NEAR_TIE}")
-    check(n_flips <= 1e-3 * (flips1.numel() + flips2.numel()), f"{n_flips} argmin flips")
-    check(grad_err <= CHAMFER_GRAD_ATOL, f"Chamfer gradient error {grad_err} > {CHAMFER_GRAD_ATOL}")
+    res = grad_vs_plain(gts, preds, g_got, g_want, "chamfer B=64")
     times = {
         "chamfer_value_and_grad_ms_b64": cuda_ms(lambda: value_and_grad(chamfer_loss_streaming)),
         "plain_ms": cuda_ms(lambda: value_and_grad(chamfer_loss), iters=3),
     }
     print(f"chamfer value_and_grad timing: {json.dumps(times)}")
-    return {"rel": rel, "grad_err": grad_err, "grad_err_all": grad_err_all,
-            "grad_rel_l2": grad_rel_l2, "argmin_flips": n_flips, "max_tie_gap": max_gap, **times}
+    return {"rel": rel, **res, **times}
 
 
 def train_batch(model, batch: int, seed: int, device) -> dict:
@@ -1317,6 +1376,278 @@ def fused_train_step(config: dict, model32, device) -> dict:
     return res
 
 
+def nn_fused_vs_plain(model32, device) -> dict:
+    """Phase 16: K5 on the partial-to-completion NN path, and against its
+    plain version and K1 run once each way."""
+    from hyperpocket_tpu_torch import ops, serving
+    from hyperpocket_tpu_torch.ops.chamfer import nn_backward
+    from hyperpocket_tpu_torch.ops.nn import (
+        nn_fused_planes,
+        nn_fused_planes_reference,
+        nn_one_direction,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+
+    def cloud(b, n):
+        return torch.randn((b, n, 3), generator=gen, device=device) * 0.3
+
+    # the path: fp32 serving completes B=64 halves of 1024 points into 2048
+    f = serving.make_serving_fn(model32, num_output_points=N_OUT, device=device)
+    existing = cloud(SERVE_BATCH, N_EXISTING)
+    noise = torch.randn((SERVE_BATCH, model32.get_noise_size()), generator=gen,
+                        device=device) * 0.13
+    completion = f(existing, noise, 15).requires_grad_()
+    nn_fused_planes.launches = nn_one_direction.launches = 0
+    d1, i1, d2, i2 = ops.nn_distance_pallas(existing, completion)
+    (g_nn,) = torch.autograd.grad(d1.sum() + d2.sum(), completion)
+    loss = ops.chamfer_loss_auto(existing, completion)
+    (g_loss,) = torch.autograd.grad(loss, completion)
+    torch.cuda.synchronize()
+    launches = {"nn_fused_planes": nn_fused_planes.launches,
+                "nn_one_direction": nn_one_direction.launches}
+    print(f"K5 path: completion {tuple(completion.shape)}, launches {launches}")
+    check(launches == {"nn_fused_planes": 2, "nn_one_direction": 0},
+          f"the N != M grad NN path launched {launches}, expected K5 twice and K1 never")
+    want = nn_fused_planes_reference(existing, completion.detach())
+    check(all(torch.equal(g, w) for g, w in zip((d1, i1, d2, i2), want)),
+          "nn_distance_pallas differs from K5's plain version")
+    _, want_g = nn_backward(existing, completion.detach(), i1, i2, torch.ones_like(d1),
+                            torch.ones_like(d2))
+    path_err = max((g - want_g).abs().max().item() for g in (g_nn, g_loss))
+    check(bool(torch.isfinite(g_nn).all()) and path_err <= 1e-5 * want_g.abs().max().item(),
+          f"the K5 path's gradient is {path_err} off nn_backward's")
+    check(abs(loss.item() - (d1.sum() + d2.sum()).item()) <= CHAMFER_RTOL * loss.item(),
+          "chamfer_loss_auto differs from the summed K5 distances")
+
+    dup_q, dup_k = cloud(2, 128), cloud(2, 96)
+    cases = {
+        "B64_1024x2048": (cloud(TRAIN_BATCH, N_EXISTING), cloud(TRAIN_BATCH, N_OUT)),
+        "B64_2048x1024": (cloud(TRAIN_BATCH, N_OUT), cloud(TRAIN_BATCH, N_EXISTING)),
+        "B64_2048x2048": (cloud(TRAIN_BATCH, N_OUT), cloud(TRAIN_BATCH, N_OUT)),
+        "ragged_B3_200x136": (cloud(3, 200), cloud(3, 136)),
+        "long_keys_B2_300x4500": (cloud(2, 300), cloud(2, 4500)),
+        # every query and every key twice: ties both ways, the first copy wins
+        "dup_both_B2_256x192": (torch.cat([dup_q, dup_q], dim=1).contiguous(),
+                                torch.cat([dup_k, dup_k], dim=1).contiguous()),
+        "equal_points_B2_128x96": (cloud(2, 1).expand(2, 128, 3).contiguous(),
+                                   cloud(2, 1).expand(2, 96, 3).contiguous()),
+    }
+    err = 0.0
+    for name, (q, k) in cases.items():
+        got = nn_fused_planes(q, k)
+        torch.cuda.synchronize()
+        plain = nn_fused_planes_reference(q, k)
+        k1 = (*nn_one_direction(q, k), *nn_one_direction(k, q))
+        for tag, g, p, o in zip(("dist1", "idx1", "dist2", "idx2"), got, plain, k1):
+            check(g.dtype == p.dtype and torch.equal(g, p),
+                  f"{name}: K5 {tag} differs from the plain version's at "
+                  f"{int((g != p).sum())} points")
+            check(torch.equal(g, o), f"{name}: K5 {tag} differs from K1's")
+        if name.startswith("dup"):
+            check(int(got[1].max()) < 96 and int(got[3].max()) < 128,
+                  f"{name}: a tie did not go to the first copy")
+        err = max(err, (got[0] - plain[0]).abs().max().item(),
+                  (got[2] - plain[2]).abs().max().item())
+    print(f"K5 vs plain and K1: distances bit-equal and indices equal on {list(cases)}")
+
+    times = {}
+    for name in ("B64_1024x2048", "B64_2048x2048"):
+        q, k = cases[name]
+
+        def library():  # cdist without the expansion, then min and argmin both ways
+            d = torch.cdist(q, k, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+            return d.min(dim=2), d.min(dim=1)
+
+        b, n, m = q.shape[0], q.shape[1], k.shape[1]
+        times[name] = {
+            "ms": cuda_ms(lambda: nn_fused_planes(q, k)),
+            "k1_twice_ms": cuda_ms(lambda: (nn_one_direction(q, k), nn_one_direction(k, q))),
+            "plain_ms": cuda_ms(lambda: nn_fused_planes_reference(q, k), iters=3),
+            "library_ms": cuda_ms(library, iters=1, windows=3, warmup=1),
+            # 8 instructions for the distance, a compare and two selects each way
+            **pair_bound(q, k, 8 * b * (n + m), 14),
+        }
+        print(f"K5 timing {name}: {json.dumps(times[name])}")
+    return {"launches": launches, "max_abs_err": err, "times": times}
+
+
+def chamfer_fused_vs_plain(device) -> dict:
+    """Phase 17: ``chamfer_loss_fused`` (K9) value and gradient at the
+    training shape and at 2048x1024."""
+    from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss, nn_backward
+    from hyperpocket_tpu_torch.ops.nn import (
+        chamfer_loss_fused,
+        chamfer_loss_grad,
+        chamfer_loss_grad_reference,
+        chamfer_loss_streaming,
+        nn_fused_planes,
+        nn_min_fused,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    out = {"cases": {}, "times": {}}
+    for name, m in (("B64_2048x2048", N_OUT), ("B64_2048x1024", N_EXISTING)):
+        gts = (torch.randn((TRAIN_BATCH, N_OUT, 3), generator=gen, device=device) * 0.3)
+        preds = (torch.randn((TRAIN_BATCH, m, 3), generator=gen, device=device) * 0.3)
+        gts.requires_grad_()
+        preds.requires_grad_()
+        chamfer_loss_grad.launches = 0  # the path: value and gradient through the op
+        loss = chamfer_loss_fused(gts, preds)
+        ga, gb = torch.autograd.grad(loss, (gts, preds), retain_graph=True)
+        ga3, gb3 = torch.autograd.grad(3.0 * loss, (gts, preds))
+        torch.cuda.synchronize()
+        launches = chamfer_loss_grad.launches
+        check(launches == 1, f"{name}: chamfer_loss_fused launched K9 {launches} times, not 1")
+        a, b = gts.detach(), preds.detach()
+        with torch.no_grad():
+            value = chamfer_loss_streaming(a, b)
+            per_sample, _, _ = chamfer_loss_grad(a, b)
+            k3 = nn_min_fused(a, b)
+            k3_sums = k3[0].sum(dim=1) + k3[1].sum(dim=1)
+            d1, i1, d2, i2 = nn_fused_planes(a, b)
+            want_ga, want_gb = nn_backward(a, b, i1, i2, torch.ones_like(d1),
+                                           torch.ones_like(d2))
+            plain = chamfer_loss_grad_reference(a, b)
+        res = {"launches": launches,
+               "value_rel": abs(loss.item() - value.item()) / value.item(),
+               "per_sample_rel": ((per_sample - k3_sums).abs() / k3_sums).max().item(),
+               "ga_err_to_scale": (ga - want_ga).abs().max().item() / want_ga.abs().max().item(),
+               "gb_err_to_scale": (gb - want_gb).abs().max().item() / want_gb.abs().max().item(),
+               "cotangent_3x_rel": max(((g3 - 3.0 * g).abs() / (3.0 * g).abs().clamp_min(1e-30))
+                                       .max().item() for g3, g in ((ga3, ga), (gb3, gb))),
+               "max_abs_err": max((ga - plain[1]).abs().max().item(),
+                                  (gb - plain[2]).abs().max().item())}
+        print(f"K9 {name}: {json.dumps(res)}")
+        check(res["value_rel"] <= CHAMFER_RTOL, f"{name}: K9 value off by {res['value_rel']}")
+        check(res["per_sample_rel"] <= CHAMFER_RTOL,
+              f"{name}: K9 per-sample loss off K3's sums by {res['per_sample_rel']}")
+        check(max(res["ga_err_to_scale"], res["gb_err_to_scale"]) <= CHAMFER_RTOL,
+              f"{name}: K9 gradients off nn_backward's by {res['ga_err_to_scale']}, "
+              f"{res['gb_err_to_scale']} of their scale")
+        check(res["cotangent_3x_rel"] <= 1e-6, f"{name}: 3 loss does not give 3x the gradient")
+        b_plain = b.clone().requires_grad_()
+        want = chamfer_loss(a, b_plain)
+        (g_want,) = torch.autograd.grad(want, b_plain)
+        res["plain_value_rel"] = abs(loss.item() - want.item()) / want.item()
+        check(res["plain_value_rel"] <= CHAMFER_RTOL,
+              f"{name}: K9 value off the plain loss by {res['plain_value_rel']}")
+        res.update(grad_vs_plain(a, b, gb, g_want, f"K9 {name} vs plain autograd"))
+        out["cases"][name] = res
+
+        def value_and_grad(loss_fn):
+            v = loss_fn(gts, preds)
+            return v, torch.autograd.grad(v, (gts, preds))
+
+        t = {"ms": cuda_ms(lambda: chamfer_loss_grad(a, b)),
+             "value_and_grad_ms": cuda_ms(lambda: value_and_grad(chamfer_loss_fused)),
+             # phase 7's route: K1 twice (or K5) + the gather/scatter backward (K2)
+             "streaming_value_and_grad_ms": cuda_ms(
+                 lambda: value_and_grad(chamfer_loss_streaming)),
+             "plain_ms": cuda_ms(lambda: chamfer_loss_grad_reference(a, b), iters=3),
+             "library_ms": None,  # no one PyTorch call gives the loss and both fields
+             **pair_bound(a, b, 4 * (TRAIN_BATCH + a.numel() + b.numel()), 14)}
+        out["times"][name] = t
+        print(f"K9 timing {name}: {json.dumps(t)}")
+    out["launches"] = out["cases"]["B64_2048x2048"]["launches"]
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"].values())
+    return out
+
+
+def decode_vs_plain(model, model32, device) -> dict:
+    """Phase 18: K10 on the served model's own flat weights and ball points."""
+    from hyperpocket_tpu_torch import ops
+    from hyperpocket_tpu_torch.models.hyper_network import target_weight_count
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch_reference
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+
+    channels, use_bias = model.target_layer_out_channels, model.target_use_bias
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    inputs = {}
+    for dtype, net in (("bf16", model.serving_params().to(device)), ("fp32", model32)):
+        cd = net.compute_torch_dtype
+        for batch in (BENCH_BATCH, SERVE_BATCH):
+            existing = torch.randn((batch, N_EXISTING, 3), generator=gen, device=device) * 0.3
+            noise = torch.randn((batch, net.get_noise_size()), generator=gen, device=device) * 0.13
+            with torch.no_grad():
+                latent, _, _ = net._get_latent(existing.to(cd), None, None, False, noise.to(cd),
+                                               None)
+                flat = net.hyper_network(latent)
+            balls = generate_target_network_input_batch(
+                net.target_network_input, gen, 1e9, batch, N_OUT).to(cd)
+            inputs[f"{dtype}_B{batch}"] = (flat, balls)
+        del net
+    ops.decode_batch.launches = 0  # the path: each request's decode through the op
+    outs = {name: ops.decode_batch(flat, balls, channels, use_bias)
+            for name, (flat, balls) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = ops.decode_batch.launches
+    check(launches == len(inputs), f"{len(inputs)} decodes launched K10 {launches} times")
+
+    res = {"launches": launches, "cases": {}}
+    for name, (flat, balls) in inputs.items():
+        got = outs[name].float()
+        check(got.shape == balls.shape and outs[name].dtype == balls.dtype
+              and bool(torch.isfinite(got).all()), f"{name}: K10 output {tuple(got.shape)}")
+        plain = decode_batch_reference(flat, balls, channels, use_bias).float()
+        chain = batched_target_network_forward(flat, balls, list(channels), use_bias).float()
+        diff = (got - plain).abs()
+        r = {"max_abs_err": diff.max().item(), "scale": plain.abs().max().item(),
+             "chain_max_abs_err": (got - chain).abs().max().item(),
+             "equal_share": (diff == 0).float().mean().item()}
+        if name.startswith("bf16"):
+            steps = diff / _bf16_step(plain)
+            r["max_bf16_steps"] = steps.max().item()
+            r["share_beyond_one_step"] = (steps > 1).float().mean().item()
+        # tests/test_pallas_decoder.py's bounds (2e-5 fp32, 0.05 bf16) hold on
+        # outputs of order 1; the model's own weights give outputs near 60
+        # and hidden values larger still, so each bound is taken relative to
+        # the output's largest entry
+        limit = (0.05 if name.startswith("bf16") else 2e-5) * max(1.0, r["scale"])
+        check(r["max_abs_err"] <= limit, f"{name}: K10 off the plain version by "
+              f"{r['max_abs_err']} > {limit}")
+        check(r["chain_max_abs_err"] <= limit, f"{name}: K10 off the model's bmm chain by "
+              f"{r['chain_max_abs_err']} > {limit}")
+        res["cases"][name] = r
+        print(f"K10 {name}: {json.dumps(r)}")
+
+    small_err = 0.0  # tests/test_pallas_decoder.py's cases, fp32, B=3, N=64
+    for small in ((32, 64, 128, 64), (8, 16), (16,), ()):
+        for bias in (True, False):
+            w = target_weight_count(list(small), bias)
+            flat = torch.randn((3, w), generator=gen, device=device) * 0.2
+            pts = torch.randn((3, 64, 3), generator=gen, device=device) * 0.5
+            got = ops.decode_batch(flat, pts, small, bias)
+            want = decode_batch_reference(flat, pts, small, bias)
+            err = (got - want).abs()
+            check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
+                  f"K10 channels {small} bias {bias}: off the plain version by {err.max().item()}")
+            small_err = max(small_err, err.max().item())
+    print(f"K10 small cases: max_abs_err {small_err!r}")
+
+    macs = sum(i * o for i, o in zip((3, *channels), (*channels, 3)))
+    res["times"] = {}
+    for name in (f"bf16_B{BENCH_BATCH}", f"fp32_B{BENCH_BATCH}", f"bf16_B{SERVE_BATCH}"):
+        flat, balls = inputs[name]
+        size = balls.element_size()
+        ops_ = 2 * macs * balls.shape[0] * balls.shape[1]
+        t = {"ms": cuda_ms(lambda: ops.decode_batch(flat, balls, channels, use_bias)),
+             "plain_ms": cuda_ms(lambda: decode_batch_reference(flat, balls, channels, use_bias),
+                                 iters=3),
+             # the model's own decode: cuBLAS bmm + bias add + ReLU per layer
+             "library_ms": cuda_ms(lambda: batched_target_network_forward(
+                 flat, balls, list(channels), use_bias), iters=10),
+             # the same products on the CUDA cores in fp32, K10's route
+             "cuda_core_bound_ms": 1e3 * ops_ / FP32_FLOPS,
+             **bound(size * (flat.numel() + 2 * balls.numel()),
+                     ops_ / (BF16_FLOPS if size == 2 else FP32_FLOPS))}
+        res["times"][name] = t
+        print(f"K10 timing {name}: {json.dumps(t)}")
+    res["max_abs_err"] = res["cases"][f"bf16_B{BENCH_BATCH}"]["max_abs_err"]
+    return res
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -1420,7 +1751,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     card = card_line()
-    print(f"card: {card}")
+    print(f"card: {card}; SM clock, power, temperature at the start: {clock_line()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1460,6 +1791,15 @@ def main(argv=None) -> int:
         cli_training = drive_cli_training(device, Path(tmp))
     print(f"cli training: {json.dumps(cli_training)} on {card}")
     fused = fused_train_step(config, model32, device)
+    torch.cuda.empty_cache()
+    k5 = nn_fused_vs_plain(model32, device)
+    print(f"K5: {json.dumps(k5)} on {card}")
+    torch.cuda.empty_cache()
+    k9 = chamfer_fused_vs_plain(device)
+    print(f"K9: {json.dumps(k9)} on {card}")
+    torch.cuda.empty_cache()
+    k10 = decode_vs_plain(model, model32, device)
+    print(f"K10: {json.dumps(k10)} on {card}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
@@ -1492,7 +1832,14 @@ def main(argv=None) -> int:
               fast["trunk_pool_argmax"], argmax["max_abs_err"], argmax["times"]["B64_N1024"]),
         entry("head_adam", "head_adam.cu", "hyperpocket_tpu/ops/pallas_head_adam.py:88",
               fused["fused"]["launches"], head["max_abs_err"], head["times"]),
+        entry("nn_fused_planes", "nn_fused_planes.cu", "hyperpocket_tpu/ops/pallas_nn.py:386",
+              k5["launches"]["nn_fused_planes"], k5["max_abs_err"], k5["times"]["B64_1024x2048"]),
+        entry("chamfer_loss_grad", "chamfer_loss_grad.cu", "hyperpocket_tpu/ops/pallas_nn.py:580",
+              k9["launches"], k9["max_abs_err"], k9["times"]["B64_2048x2048"]),
+        entry("decode_batch", "decode_batch.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
+              k10["launches"], k10["max_abs_err"], k10["times"][f"bf16_B{BENCH_BATCH}"]),
     ]
+    print(f"SM clock, power, temperature at the end: {clock_line()}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,8 @@ Port of ``hyperpocket_tpu/eval/evaluation.py`` (reference
   unordered pairs, times 2/(k-1), averaged over objects.
 
 The inner ops are ``ops/nn.py``'s dispatchers, so on a card the clouds run
-K3. The artifact layout is the
+K3. Every function runs on the card unless ``device`` names another (and
+raises without CUDA). The artifact layout is the
 ``fixed`` experiment's: sorted ``*_reconstruction.npy`` files in groups of k
 per object, saved as (3, N), and ``*_existing.npy``.
 """
@@ -29,10 +30,11 @@ from hyperpocket_tpu_torch.ops.nn import (
     directed_hausdorff_auto,
     nn_min_dists,
 )
+from hyperpocket_tpu_torch.serving import resolve_device
 
 
 def minimum_matching_distance(sample_pcs: np.ndarray, ref_pcs: np.ndarray, batch_size: int,
-                              device="cpu"):
+                              device="cuda"):
     """(mmd, per-ref best distances), the definition of reference mmd.py:23-47.
 
     Eight refs times ``batch_size`` samples go through one ``nn_min_dists``
@@ -43,6 +45,7 @@ def minimum_matching_distance(sample_pcs: np.ndarray, ref_pcs: np.ndarray, batch
     if n_pts != n_pts_s or dim != dim_s:
         raise ValueError("Incompatible size of point-clouds.")
     r_block = 8
+    device = resolve_device(device)
     samples = torch.as_tensor(np.asarray(sample_pcs), device=device)
     refs_all = torch.as_tensor(np.asarray(ref_pcs), device=device)
     best = np.full(n_ref, np.inf, np.float64)
@@ -89,7 +92,7 @@ def _load_grouped_reconstructions(shape_dir: str, group: int | None = None) -> n
     return np.asarray(out, dtype=np.float32)
 
 
-def mmd_process(shape_dir: str, dataset, batch_size: int = 64, device="cpu") -> float:
+def mmd_process(shape_dir: str, dataset, batch_size: int = 64, device="cuda") -> float:
     """Reference mmd.process (mmd.py:50-69): fixed/ samples vs the dataset's gt."""
     ref_pcs = np.stack([data[2] for data in dataset], axis=0)
     paths = sorted(glob.glob(join(shape_dir, "*reconstruction.npy")))
@@ -98,8 +101,9 @@ def mmd_process(shape_dir: str, dataset, batch_size: int = 64, device="cpu") -> 
     return mmd
 
 
-def uhd_process(shape_dir: str, group: int | None = None, device="cpu") -> float:
+def uhd_process(shape_dir: str, group: int | None = None, device="cuda") -> float:
     """Mean directed Hausdorff existing -> completions (completeness.py:63-89)."""
+    device = resolve_device(device)
     gen = torch.as_tensor(_load_grouped_reconstructions(shape_dir, group), device=device)
     existing_paths = sorted(glob.glob(join(shape_dir, "*existing.npy")))
     existing = torch.as_tensor(
@@ -111,8 +115,9 @@ def uhd_process(shape_dir: str, group: int | None = None, device="cpu") -> float
     return float(np.mean([float(v) for v in vals]))
 
 
-def tmd_process(shape_dir: str, group: int | None = None, device="cpu") -> float:
+def tmd_process(shape_dir: str, group: int | None = None, device="cuda") -> float:
     """Total mutual difference among completions (total_mutual_diff.py:27-61)."""
+    device = resolve_device(device)
     gen = torch.as_tensor(_load_grouped_reconstructions(shape_dir, group), device=device)
     o, k = gen.shape[0], gen.shape[1]
     ii, jj = np.triu_indices(k, 1)
@@ -124,9 +129,10 @@ def tmd_process(shape_dir: str, group: int | None = None, device="cpu") -> float
 
 
 def compute_trimesh_chamfer(gt_points: np.ndarray, gen_points: np.ndarray,
-                            offset: float = 0, scale: float = 1) -> float:
+                            offset: float = 0, scale: float = 1, device="cuda") -> float:
     """Symmetric mean-squared-NN Chamfer (reference chamfer.py:8-31)."""
+    device = resolve_device(device)
     gen_points = np.asarray(gen_points) / scale - offset
-    cd = chamfer_per_cloud_auto(torch.as_tensor(np.asarray(gt_points))[None],
-                                torch.as_tensor(gen_points)[None])
+    cd = chamfer_per_cloud_auto(torch.as_tensor(np.asarray(gt_points), device=device)[None],
+                                torch.as_tensor(gen_points, device=device)[None])
     return float(cd[0])

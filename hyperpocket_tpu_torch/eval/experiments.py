@@ -42,6 +42,7 @@ import torch
 from hyperpocket_tpu_torch.data.loader import BatchLoader
 from hyperpocket_tpu_torch.data.slicer import slice_point_cloud
 from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+from hyperpocket_tpu_torch.serving import resolve_device
 
 log = logging.getLogger("hyperpocket_tpu_torch.experiments")
 
@@ -79,11 +80,11 @@ class TorchDraws:
 class ExperimentContext:
     """The restored model, its epoch and the draws handed to every experiment."""
 
-    def __init__(self, model, epoch: int, seed: int = 2020, device="cpu", draws=None):
+    def __init__(self, model, epoch: int, seed: int = 2020, device="cuda", draws=None):
         self.model = model
         self.epoch = epoch
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.draws = draws if draws is not None else TorchDraws(model, self.device)
         self.latent_prior = None  # set by fit_latent_prior
         self._counter = int(seed) * 1_000_003
@@ -496,7 +497,7 @@ experiment_functions_dict = {
 # ---------------------------------------------------------------------------
 
 
-def run_experiments(config: dict, result_dir: str, datasets=None, device="cpu",
+def run_experiments(config: dict, result_dir: str, datasets=None, device="cuda",
                     draws=None) -> ExperimentContext:
     """Experiments mode (reference core/main.py:176-188); returns the context.
 
@@ -510,6 +511,7 @@ def run_experiments(config: dict, result_dir: str, datasets=None, device="cpu",
     from hyperpocket_tpu_torch.train.checkpoint import restore_trained_model
     from hyperpocket_tpu_torch.utils.logging_setup import seed_setup
 
+    device = resolve_device(device)
     seed_setup(config["setup"]["seed"])
     model, epoch = restore_trained_model(config, device=device)
     model.eval()

@@ -6,7 +6,8 @@ means, and fits a full-covariance Gaussian to them (sample covariance
 shrunk 5% toward its diagonal, plus a small jitter); experiments with
 ``noise_source="empirical"`` draw the missing-half code from it instead of
 the isotropic ``N(mean, std)``. An opt-in extension of the JAX package; every
-experiment defaults to the isotropic draw.
+experiment defaults to the isotropic draw. Encoding runs on the card unless
+``device`` names another (and raises without CUDA).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from hyperpocket_tpu_torch.serving import resolve_device
 
 __all__ = [
     "LatentGaussian",
@@ -62,13 +65,14 @@ def load_latent_gaussian(path: str) -> LatentGaussian:
 
 
 def encode_missing_mus(model, clouds: np.ndarray, batch_size: int = 64,
-                       device="cpu") -> np.ndarray:
+                       device="cuda") -> np.ndarray:
     """Missing-half clouds (N, M, 3) -> posterior means (N, Z), ``batch_size`` at a time.
 
     The random encoder's inference forward (``fast=True``) on the fp32
     parameters, as in the JAX package; the sampled code is not used, so its
     noise is zero.
     """
+    device = resolve_device(device)
     clouds = np.asarray(clouds, dtype=np.float32)
     encoder = model.random_encoder
     out = []
@@ -98,7 +102,7 @@ def collect_val_missing_halves(val_dict, max_items: int = 1024) -> np.ndarray:
 
 
 def fit_latent_gaussian(model, missing_clouds: np.ndarray, batch_size: int = 64,
-                        shrinkage: float = 0.05, device="cpu") -> LatentGaussian:
+                        shrinkage: float = 0.05, device="cuda") -> LatentGaussian:
     """Fit the empirical Gaussian of posterior means over ``missing_clouds``."""
     mus = encode_missing_mus(model, missing_clouds, batch_size, device)
     mean = mus.mean(axis=0)

@@ -16,9 +16,12 @@ after PointFlow):
 * ``knn``: 1-NN two-sample accuracy, with ``topk`` over the k smallest.
 * JSD on 28^3 occupancy grids: numpy, a copy of the JAX package's.
 
-Clouds may be numpy arrays or tensors; ``device`` places numpy inputs (a
-tensor stays where it is). Matrices come back as tensors on that device,
-except ``pairwise_emd_cd_multi``, which returns numpy as the JAX package does.
+Clouds may be numpy arrays or tensors. ``device`` places them; without it a
+tensor stays where it is and numpy goes to the card (raising without CUDA).
+Matrices come back as tensors on that device, except
+``pairwise_emd_cd_multi``, which returns numpy as the JAX package does. The
+small post-processing of matrices (``mmd_cov``, ``knn``) keeps numpy on the
+host.
 """
 
 from __future__ import annotations
@@ -32,12 +35,19 @@ from scipy.stats import entropy
 
 from hyperpocket_tpu_torch.ops.emd import earth_mover_distance
 from hyperpocket_tpu_torch.ops.nn import chamfer_per_cloud_auto
+from hyperpocket_tpu_torch.serving import resolve_device
 
 
 def _tensor(x, device=None) -> torch.Tensor:
+    """Clouds on ``device``; without one a tensor stays put and numpy goes to the card."""
     if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
-    return torch.as_tensor(np.asarray(x), device=device or "cpu")
+        return x if device is None else x.to(resolve_device(device))
+    device = resolve_device("cuda" if device is None else device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
 def _sync(device: torch.device) -> None:
@@ -151,7 +161,7 @@ def pairwise_emd_cd_multi(row_pcs, col_sets, pair_block: int = 512, device=None,
 
 def mmd_cov(all_dist) -> dict:
     """all_dist (N_sample, N_ref) -> fidelity/coverage stats."""
-    all_dist = _tensor(all_dist)
+    all_dist = _host_tensor(all_dist)
     n_ref = all_dist.shape[1]
     min_val_fromsmp, min_idx = torch.min(all_dist, dim=1)
     min_val = torch.amin(all_dist, dim=0)
@@ -165,7 +175,7 @@ def mmd_cov(all_dist) -> dict:
 
 def knn(mxx, mxy, myy, k: int, sqrt: bool = False) -> dict:
     """1-NN two-sample test stats (reference metrics.py:162-191)."""
-    mxx, mxy, myy = _tensor(mxx), _tensor(mxy), _tensor(myy)
+    mxx, mxy, myy = _host_tensor(mxx), _host_tensor(mxy), _host_tensor(myy)
     n0, n1 = mxx.shape[0], myy.shape[0]
     label = torch.cat([torch.ones(n0, dtype=mxx.dtype), torch.zeros(n1, dtype=mxx.dtype)]).to(
         mxx.device)
@@ -218,7 +228,7 @@ def mmd_cov_multi(m_cd, m_emd) -> list[dict]:
     out: list[dict] = [{} for _ in range(len(m_cd))]
     n_ref = m_cd.shape[1]
     for tag, m in (("CD", m_cd), ("EMD", m_emd)):
-        m = _tensor(m).transpose(1, 2)  # (G, S, R)
+        m = _host_tensor(m).transpose(1, 2)  # (G, S, R)
         min_val_fromsmp, min_idx = torch.min(m, dim=2)
         min_val = torch.amin(m, dim=1)
         mmd, mmd_smp = min_val.mean(dim=1), min_val_fromsmp.mean(dim=1)

@@ -1,4 +1,4 @@
-"""Nearest-neighbour kernels K1 and K3, and the Chamfer-loss dispatch.
+"""Nearest-neighbour kernels K1, K3, K5 and K9, and the Chamfer dispatch.
 
 Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
 
@@ -6,9 +6,20 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
   the squared distance to the nearest key and that key's first index.
 * ``nn_min_fused`` (K3, ``csrc/nn_min_fused.cu``): the minimum distances in
   both directions, without indices, from one pass.
+* ``nn_fused_planes`` (K5, ``csrc/nn_fused_planes.cu``): the minima and
+  first argmins in both directions from one pass; ties on the key side go
+  to the lowest query index.
+* ``chamfer_loss_grad`` (K9, ``csrc/chamfer_loss_grad.cu``): the per-sample
+  Chamfer sum and both gradient fields from one host call.
+* ``nn_forward``: the grad forward of the NN ops, the counterpart of
+  ``_nn_forward_pallas``: K5 when the clouds differ in size, K1 twice when
+  they are equal (the JAX package's policy). ``nn_distance_pallas`` is an
+  autograd function on it, with the backward ``ops/chamfer.py::nn_backward``.
 * ``chamfer_loss_streaming``: the Chamfer sum. With no gradient needed it
-  runs K3 once; under autograd K1 runs twice, the indices are saved, and the
-  backward is ``ops/chamfer.py::nn_backward``.
+  runs K3 once; under autograd ``nn_forward``, the indices are saved, and
+  the backward is ``nn_backward``.
+* ``chamfer_loss_fused``: the same value; under autograd K9 runs once and
+  the backward scales the saved gradient fields.
 * ``chamfer_loss_auto``: the training loss's dispatch. fp32 CUDA clouds
   take the streaming path at any point counts; fp64 (the trajectory-parity
   mode) takes ``ops/chamfer.py::chamfer_loss``, as in the JAX package. CPU
@@ -16,23 +27,19 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
   multiples of 128 take the streaming path (the plain versions of the
   kernels), everything else the plain loss.
 * the metric dispatchers ``nn_min_dists``, ``chamfer_per_cloud_auto``,
-  ``directed_hausdorff_auto`` (K3) and ``nn_distance_auto`` (K1 twice): the
-  matrix forms of ``ops/chamfer.py`` for CPU clouds, the kernels for CUDA
-  clouds at any point counts (fp32 only; anything else raises). The JAX
-  package's 128-multiple gate fits Mosaic's lane layout, which the CUDA
-  kernels do not have.
+  ``directed_hausdorff_auto`` (K3) and ``nn_distance_auto``
+  (``nn_distance_pallas``): the matrix forms of ``ops/chamfer.py`` for CPU
+  clouds, the kernels for CUDA clouds at any point counts (fp32 only;
+  anything else raises). The JAX package's 128-multiple and VMEM-tile
+  gates fit Mosaic, which the CUDA kernels do not have.
 
-Both kernels compute a distance as the TPU kernels do: ``d = 0; for c in
+The kernels compute a distance as the TPU kernels do: ``d = 0; for c in
 0..2: diff = k_c - q_c; d += diff * diff``, each step rounded on its own.
-The plain versions ``nn_one_direction_reference`` and
-``nn_min_fused_reference`` do the same on tensors, so kernel and plain
-version agree bit for bit and their indices are equal. A wrapper runs the
-plain version for a CPU tensor; for a CUDA tensor it launches its kernel or
-raises. ``<wrapper>.launches`` counts kernel launches.
-
-The JAX package computes the grad forward at N != M with K5
-(``_nn_fused_planes``), which is not ported yet: the port runs K1 twice
-there, the JAX package's own route when K5's tile does not fit.
+The plain versions (``*_reference``) do the same on tensors, so kernel and
+plain version agree bit for bit and their indices are equal; K9's sums use
+atomics and agree to rounding. A wrapper runs the plain version for a CPU
+tensor; for a CUDA tensor it launches its kernel or raises.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -85,6 +92,26 @@ def nn_min_fused_reference(q: torch.Tensor, k: torch.Tensor):
     return torch.amin(d, dim=2), torch.amin(d, dim=1)
 
 
+def nn_fused_planes_reference(q: torch.Tensor, k: torch.Tensor):
+    """Plain version of K5: (dist1, idx1 (B, N); dist2, idx2 (B, M)), fp32 / int32."""
+    _check(q, k)
+    d = _sqdist_reference(q, k)
+    return (torch.amin(d, dim=2), torch.argmin(d, dim=2).int(),
+            torch.amin(d, dim=1), torch.argmin(d, dim=1).int())
+
+
+def chamfer_loss_grad_reference(gts: torch.Tensor, preds: torch.Tensor):
+    """Plain version of K9: (loss (B,), grad_gts (B, N, 3), grad_preds (B, M, 3)) fp32.
+
+    The per-sample sum of both directions' minima, and ``nn_backward`` on
+    K5's first argmins with unit cotangents.
+    """
+    gts, preds = gts.float(), preds.float()
+    d1, i1, d2, i2 = nn_fused_planes_reference(gts, preds)
+    ga, gb = nn_backward(gts, preds, i1, i2, torch.ones_like(d1), torch.ones_like(d2))
+    return d1.sum(dim=1) + d2.sum(dim=1), ga, gb
+
+
 def _kernel_args(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
     """Raise on what the CUDA kernels do not take."""
     if q.device.type != "cuda" or k.device != q.device:
@@ -100,18 +127,19 @@ def _kernel_args(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
 
 
 @functools.cache
-def _c_function(symbol: str):
+def _c_function(symbol: str, n_pointers: int):
     fn = getattr(library(), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(symbol: str, q, k, out_a, out_b) -> None:
+def _launch(symbol: str, q, k, *outs) -> None:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _c_function(symbol)(q.data_ptr(), k.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-                                 q.shape[0], q.shape[1], k.shape[1], stream)
+        rc = _c_function(symbol, 2 + len(outs))(
+            q.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs),
+            q.shape[0], q.shape[1], k.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} kernel launch failed with CUDA error {rc}")
 
@@ -148,13 +176,66 @@ def nn_min_fused(q: torch.Tensor, k: torch.Tensor):
 nn_min_fused.launches = 0
 
 
+def nn_fused_planes(q: torch.Tensor, k: torch.Tensor):
+    """K5: q (B, N, 3), k (B, M, 3) -> (dist1, idx1 (B, N); dist2, idx2 (B, M))."""
+    _check(q, k)
+    if q.device.type == "cpu" and k.device.type == "cpu":
+        return nn_fused_planes_reference(q, k)
+    _kernel_args("nn_fused_planes", q, k)
+    b, n, m = q.shape[0], q.shape[1], k.shape[1]
+    dist1 = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    idx1 = torch.empty((b, n), dtype=torch.int32, device=q.device)
+    dist2 = torch.empty((b, m), dtype=torch.float32, device=q.device)
+    idx2 = torch.empty((b, m), dtype=torch.int32, device=q.device)
+    pairs = torch.empty((b, m), dtype=torch.int64, device=q.device)
+    _launch("hpcd_nn_fused_planes", q, k, dist1, idx1, dist2, idx2, pairs)
+    nn_fused_planes.launches += 1
+    return dist1, idx1, dist2, idx2
+
+
+nn_fused_planes.launches = 0
+
+
+def chamfer_loss_grad(gts: torch.Tensor, preds: torch.Tensor):
+    """K9: gts (B, N, 3), preds (B, M, 3) -> (loss (B,), grad_gts, grad_preds) fp32.
+
+    The gradients are those of ``loss.sum()`` through the first argmins.
+    CPU clouds of any float dtype are taken in fp32, as the TPU kernel
+    casts; CUDA clouds must be fp32.
+    """
+    _check(gts, preds)
+    if gts.device.type == "cpu" and preds.device.type == "cpu":
+        return chamfer_loss_grad_reference(gts, preds)
+    _kernel_args("chamfer_loss_grad", gts, preds)
+    b = gts.shape[0]
+    if b > 65535:
+        raise ValueError(f"chamfer_loss_grad takes at most 65535 clouds, got {b}")
+    loss = torch.empty((b,), dtype=torch.float32, device=gts.device)
+    ga, gb = torch.empty_like(gts), torch.empty_like(preds)
+    pairs = torch.empty((b, preds.shape[1]), dtype=torch.int64, device=gts.device)
+    _launch("hpcd_chamfer_loss_grad", gts, preds, loss, ga, gb, pairs)
+    chamfer_loss_grad.launches += 1
+    return loss, ga, gb
+
+
+chamfer_loss_grad.launches = 0
+
+
+def nn_forward(a: torch.Tensor, b: torch.Tensor):
+    """(dist1, idx1, dist2, idx2): K5 when N != M, else K1 once each way."""
+    if a.shape[1] != b.shape[1]:
+        return nn_fused_planes(a, b)
+    dist1, idx1 = nn_one_direction(a, b)
+    dist2, idx2 = nn_one_direction(b, a)
+    return dist1, idx1, dist2, idx2
+
+
 class _ChamferStreaming(torch.autograd.Function):
-    """Chamfer sum under autograd: K1 twice forward, ``nn_backward`` backward."""
+    """Chamfer sum under autograd: ``nn_forward`` forward, ``nn_backward`` backward."""
 
     @staticmethod
     def forward(ctx, gts, preds):
-        d_gt, i_gt = nn_one_direction(gts, preds)
-        d_pred, i_pred = nn_one_direction(preds, gts)
+        d_gt, i_gt, d_pred, i_pred = nn_forward(gts, preds)
         ctx.save_for_backward(gts, preds, i_gt, i_pred)
         return d_gt.sum() + d_pred.sum()
 
@@ -169,9 +250,10 @@ def chamfer_loss_streaming(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tens
     """Sum over batch and points of the NN squared distances, both directions.
 
     The same value as ``ops/chamfer.py::chamfer_loss``, from the kernels:
-    K3 when no gradient is needed, else K1 twice with the backward through
-    the saved indices. Gradients differ from ``chamfer_loss``'s only at
-    near-tied argmins, where both are valid subgradients.
+    K3 when no gradient is needed, else ``nn_forward`` (K1 twice, or K5
+    when N != M) with the backward through the saved indices. Gradients
+    differ from ``chamfer_loss``'s only at near-tied argmins, where both
+    are valid subgradients.
     """
     _check(gts, preds)
     gts, preds = gts.contiguous(), preds.contiguous()
@@ -179,6 +261,36 @@ def chamfer_loss_streaming(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tens
         return _ChamferStreaming.apply(gts, preds)
     d_gt, d_pred = nn_min_fused(gts, preds)
     return d_gt.sum() + d_pred.sum()
+
+
+class _ChamferFused(torch.autograd.Function):
+    """Chamfer sum under autograd: K9 forward, the saved fields scaled backward."""
+
+    @staticmethod
+    def forward(ctx, gts, preds):
+        loss, ga, gb = chamfer_loss_grad(gts, preds)
+        ctx.save_for_backward(ga, gb)
+        return loss.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        ga, gb = ctx.saved_tensors
+        return g * ga, g * gb
+
+
+def chamfer_loss_fused(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+    """``chamfer_loss_streaming``'s value; under autograd from K9 in one pass.
+
+    With no gradient needed it is ``chamfer_loss_streaming`` (K3). Under
+    autograd the forward launches K9 once and keeps both gradient fields;
+    the backward multiplies them by the cotangent. The JAX package keeps it
+    off every default path, as the port does.
+    """
+    _check(gts, preds)
+    gts, preds = gts.contiguous(), preds.contiguous()
+    if torch.is_grad_enabled() and (gts.requires_grad or preds.requires_grad):
+        return _ChamferFused.apply(gts, preds)
+    return chamfer_loss_streaming(gts, preds)
 
 
 def pallas_shapes_ok(n: int, m: int) -> bool:
@@ -216,12 +328,11 @@ def nn_min_dists(a: torch.Tensor, b: torch.Tensor):
 
 
 class _NNDistanceKernels(torch.autograd.Function):
-    """``nn_distance`` from K1 twice; backward through the indices (K2)."""
+    """``nn_distance`` from ``nn_forward``; backward through the indices (K2)."""
 
     @staticmethod
     def forward(ctx, a, b):
-        dist1, idx1 = nn_one_direction(a, b)
-        dist2, idx2 = nn_one_direction(b, a)
+        dist1, idx1, dist2, idx2 = nn_forward(a, b)
         ctx.save_for_backward(a, b, idx1, idx2)
         ctx.mark_non_differentiable(idx1, idx2)
         return dist1, idx1, dist2, idx2
@@ -232,14 +343,21 @@ class _NNDistanceKernels(torch.autograd.Function):
         return nn_backward(a, b, idx1, idx2, g1, g2)
 
 
-def nn_distance_auto(a: torch.Tensor, b: torch.Tensor):
-    """``ops/chamfer.py::nn_distance`` through K1 (twice) where the kernels apply.
+def nn_distance_pallas(a: torch.Tensor, b: torch.Tensor):
+    """``ops/chamfer.py::nn_distance`` from the kernels: (dist1, idx1, dist2, idx2).
 
-    The JAX package's single-pass K5 (``_nn_fused_planes``) is not ported
-    yet; two K1 launches give the same distances and first-argmin indices.
+    The forward is ``nn_forward`` (K5 when N != M, K1 twice when N == M; the
+    plain versions for CPU clouds), the backward ``nn_backward`` through the
+    first argmins. Only the distances carry gradients.
     """
+    _check(a, b)
+    return _NNDistanceKernels.apply(a.contiguous(), b.contiguous())
+
+
+def nn_distance_auto(a: torch.Tensor, b: torch.Tensor):
+    """``nn_distance_pallas`` for CUDA clouds, the matrix form for CPU ones."""
     if _metric_kernels(a, b):
-        return _NNDistanceKernels.apply(a.contiguous(), b.contiguous())
+        return nn_distance_pallas(a, b)
     return nn_distance(a, b)
 
 

@@ -291,20 +291,23 @@ def test_earth_mover_distance_one_launch_per_batch(cuda):
     torch.testing.assert_close(got, match_cost_fwd_reference(x, y) / 64, rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(3, 200, 136), (2, 1024, 2048)])
+@pytest.mark.parametrize("shape", [(3, 200, 136), (2, 1024, 2048), (2, 512, 512)])
 def test_metric_dispatchers_launch_kernels_at_any_shape(cuda, shape):
-    """fp32 CUDA clouds take K3 / K1 at ragged counts too, and agree with ops/chamfer.py."""
+    """fp32 CUDA clouds take K3 and, for nn_distance_auto, K5 (N != M) or K1
+    twice (N == M) at ragged counts too, and agree with ops/chamfer.py."""
     from hyperpocket_tpu_torch.ops import chamfer, nn
 
     b, n, m = shape
     a, c = _points(b, n, 17), _points(b, m, 18)
-    before = nn.nn_min_fused.launches, nn.nn_one_direction.launches
+    kernels = (nn.nn_min_fused, nn.nn_one_direction, nn.nn_fused_planes)
+    before = [k.launches for k in kernels]
     mins = nn.nn_min_dists(a, c)
     per_cloud = nn.chamfer_per_cloud_auto(a, c)
     hausdorff = nn.directed_hausdorff_auto(a, c)
     dist1, idx1, dist2, idx2 = nn.nn_distance_auto(a, c)
     torch.cuda.synchronize()
-    assert (nn.nn_min_fused.launches - before[0], nn.nn_one_direction.launches - before[1]) == (3, 2)
+    want_launches = (3, 0, 1) if n != m else (3, 2, 0)
+    assert tuple(k.launches - n0 for k, n0 in zip(kernels, before)) == want_launches
     a64, c64 = a.double(), c.double()
     want1, _, want2, _ = chamfer.nn_distance(a64, c64)
     for got, want in ((mins[0], want1), (mins[1], want2), (dist1, want1), (dist2, want2),
@@ -319,27 +322,211 @@ def test_metric_dispatchers_launch_kernels_at_any_shape(cuda, shape):
             fn(a.double(), c.double())
 
 
-@pytest.mark.parametrize("n, m", [(1000, 1000), (1000, 2048)])
+@pytest.mark.parametrize("n, m", [(1000, 1000), (1000, 2048), (1024, 2048)])
 def test_chamfer_loss_auto_launches_kernels_at_any_count(cuda, n, m):
-    """fp32 CUDA clouds take K1 (under grad) / K3 (without) at counts off the
-    128 grid; fp64 keeps the plain chain."""
+    """fp32 CUDA clouds take K1 twice (N == M) or K5 once (N != M) under
+    grad and K3 without, at counts off the 128 grid; fp64 keeps the plain
+    chain."""
     from hyperpocket_tpu_torch.ops import nn
 
+    kernels = (nn.nn_one_direction, nn.nn_min_fused, nn.nn_fused_planes)
     gts, preds = _points(4, n, 19), _points(4, m, 20).requires_grad_()
-    before = nn.nn_one_direction.launches, nn.nn_min_fused.launches
+    before = [k.launches for k in kernels]
     loss = nn.chamfer_loss_auto(gts, preds)
     (grad,) = torch.autograd.grad(loss, preds)
     with torch.no_grad():
         value = nn.chamfer_loss_auto(gts, preds)
     torch.cuda.synchronize()
-    assert (nn.nn_one_direction.launches - before[0], nn.nn_min_fused.launches - before[1]) == (2, 1)
+    want_launches = (2, 1, 0) if n == m else (0, 1, 1)
+    assert tuple(k.launches - n0 for k, n0 in zip(kernels, before)) == want_launches
     want = chamfer_loss(gts.double(), preds.detach().double())
     assert abs(loss.item() - want.item()) <= 1e-5 * want.item()
     assert abs(value.item() - want.item()) <= 1e-5 * want.item()
     assert bool(torch.isfinite(grad).all())
-    before = nn.nn_one_direction.launches, nn.nn_min_fused.launches
+    before = [k.launches for k in kernels]
     nn.chamfer_loss_auto(gts.double(), preds.detach().double())
-    assert (nn.nn_one_direction.launches, nn.nn_min_fused.launches) == before
+    assert [k.launches for k in kernels] == before
+
+
+# K5 (ops/nn.py::nn_fused_planes): the same distance arithmetic as K1 and the
+# plain version, so distances are bit-equal and indices equal, against both
+# the plain version and K1 run once each way.
+
+K5_CASES = NN_CASES + ["B64_1024x2048", "B64_2048x1024", "dup_both", "dup_adjacent"]
+
+
+def _k5_case(case: str):
+    if case == "dup_both":  # every query and every key twice: ties in both directions
+        q, k = _points(2, 128, 21), _points(2, 96, 22)
+        return torch.cat([q, q], dim=1).contiguous(), torch.cat([k, k], dim=1).contiguous()
+    if case == "dup_adjacent":  # copies in neighbouring lanes: ties through the butterfly
+        q, k = _points(2, 128, 29), _points(2, 96, 30)
+        return q.repeat_interleave(2, dim=1), k.repeat_interleave(2, dim=1)
+    if case in ("B64_1024x2048", "B64_2048x1024"):
+        n, m = (int(v) for v in case[4:].split("x"))
+        return _points(64, n, 23), _points(64, m, 24)
+    return _nn_case(case)
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_nn_fused_planes_kernel_matches_reference_and_k1(cuda, case):
+    from hyperpocket_tpu_torch.ops.nn import nn_fused_planes, nn_fused_planes_reference
+
+    q, k = _k5_case(case)
+    before = nn_fused_planes.launches
+    got = nn_fused_planes(q, k)
+    torch.cuda.synchronize()
+    assert nn_fused_planes.launches == before + 1
+    assert [t.dtype for t in got] == [torch.float32, torch.int32] * 2
+    k1 = (*nn_one_direction(q, k), *nn_one_direction(k, q))
+    for g, plain, one in zip(got, nn_fused_planes_reference(q, k), k1):
+        assert torch.equal(g, plain) and torch.equal(g, one)
+    if case == "dup_both":
+        assert int(got[1].max()) < 96 and int(got[3].max()) < 128
+    if case == "dup_adjacent":  # the first of each pair of copies
+        assert not bool((got[1] % 2).any()) and not bool((got[3] % 2).any())
+    again = nn_fused_planes(q, k)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_nn_distance_pallas_backward_through_k5(cuda):
+    from hyperpocket_tpu_torch.ops import chamfer, nn
+
+    a, c = _points(8, 1024, 25), _points(8, 2048, 26).requires_grad_()
+    before = nn.nn_fused_planes.launches, nn.nn_one_direction.launches
+    d1, i1, d2, i2 = nn.nn_distance_pallas(a, c)
+    (g,) = torch.autograd.grad(d1.sum() + 2.0 * d2.sum(), c)
+    assert (nn.nn_fused_planes.launches - before[0], nn.nn_one_direction.launches - before[1]) \
+        == (1, 0)
+    _, want_g = chamfer.nn_backward(a, c.detach(), i1, i2, torch.ones_like(d1),
+                                    torch.full_like(d2, 2.0))
+    torch.testing.assert_close(g, want_g, rtol=0, atol=1e-6)
+
+
+# K9 (ops/nn.py::chamfer_loss_grad): the loss within 1e-5 relative of the
+# plain version's, and both gradient fields within 1e-5 of the tensor's
+# largest entry (atomic sums land in a changing order).
+
+
+def _close_to_scale(got, want, tol=1e-5):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_chamfer_loss_grad_kernel_matches_reference(cuda, case):
+    from hyperpocket_tpu_torch.ops.nn import (
+        chamfer_loss_grad,
+        chamfer_loss_grad_reference,
+        nn_min_fused,
+    )
+
+    q, k = _k5_case(case)
+    before = chamfer_loss_grad.launches
+    loss, ga, gb = chamfer_loss_grad(q, k)
+    torch.cuda.synchronize()
+    assert chamfer_loss_grad.launches == before + 1
+    want_loss, want_ga, want_gb = chamfer_loss_grad_reference(q, k)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    d1, d2 = nn_min_fused(q, k)
+    torch.testing.assert_close(loss, d1.sum(dim=1) + d2.sum(dim=1), rtol=1e-5, atol=0)
+    _close_to_scale(ga, want_ga)
+    _close_to_scale(gb, want_gb)
+
+
+def test_chamfer_loss_fused_value_and_grad(cuda):
+    from hyperpocket_tpu_torch.ops.nn import (
+        chamfer_loss_fused,
+        chamfer_loss_grad,
+        chamfer_loss_grad_reference,
+        chamfer_loss_streaming,
+    )
+
+    gts, preds = _points(8, 2048, 27).requires_grad_(), _points(8, 1024, 28).requires_grad_()
+    before = chamfer_loss_grad.launches
+    loss = chamfer_loss_fused(gts, preds)
+    g1 = torch.autograd.grad(loss, (gts, preds), retain_graph=True)
+    g3 = torch.autograd.grad(3.0 * loss, (gts, preds))
+    assert chamfer_loss_grad.launches == before + 1
+    with torch.no_grad():
+        value = chamfer_loss_streaming(gts, preds)
+        assert abs(chamfer_loss_fused(gts, preds).item() - value.item()) == 0
+    assert chamfer_loss_grad.launches == before + 1
+    assert abs(loss.item() - value.item()) <= 1e-5 * value.item()
+    _, want_ga, want_gb = chamfer_loss_grad_reference(gts.detach(), preds.detach())
+    _close_to_scale(g1[0], want_ga)
+    _close_to_scale(g1[1], want_gb)
+    for a, b in zip(g3, g1):
+        torch.testing.assert_close(a, 3.0 * b, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="fp32"):
+        chamfer_loss_grad(gts.detach().double(), preds.detach().double())
+
+
+# K10 (ops/decoder.py::decode_batch) vs its plain version: fp32 within 2e-5
+# (summation order, tests/test_pallas_decoder.py's bound); bf16 within one
+# bf16 step of the value or 2e-2 of the output's largest entry (a hidden
+# value near a rounding boundary may round one step apart in the two
+# summation orders and carry that through the later layers).
+
+DECODE_CHANNELS = [(32, 64, 128, 64), (8, 16), (16,), ()]
+
+
+def _decode_inputs(channels, use_bias, batch, n, dtype, seed=0):
+    from hyperpocket_tpu_torch.models.hyper_network import target_weight_count
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = target_weight_count(list(channels), use_bias)
+    flat = torch.randn((batch, w), generator=g, device="cuda") * 0.2
+    pts = torch.randn((batch, n, 3), generator=g, device="cuda") * 0.5
+    return flat.to(dtype), pts.to(dtype)
+
+
+@pytest.mark.parametrize("shape", [(3, 64), (2, 1000), (4, 2048)])
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("channels", DECODE_CHANNELS)
+def test_decode_batch_kernel_matches_reference_fp32(cuda, channels, use_bias, shape):
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    flat, pts = _decode_inputs(channels, use_bias, *shape, torch.float32)
+    before = decode_batch.launches
+    got = decode_batch(flat, pts, channels, use_bias)
+    torch.cuda.synchronize()
+    assert decode_batch.launches == before + 1
+    assert got.shape == pts.shape and got.dtype == torch.float32
+    want = decode_batch_reference(flat, pts, channels, use_bias)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    chain = batched_target_network_forward(flat, pts, list(channels), use_bias)
+    torch.testing.assert_close(got, chain, rtol=2e-5, atol=2e-5)
+    assert torch.equal(decode_batch(flat, pts, channels, use_bias), got)
+
+
+@pytest.mark.parametrize("channels", DECODE_CHANNELS)
+def test_decode_batch_kernel_matches_reference_bf16(cuda, channels):
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    flat, pts = _decode_inputs(channels, True, 8, 2048, torch.bfloat16, seed=1)
+    got = decode_batch(flat, pts, channels).float()
+    want = decode_batch_reference(flat, pts, channels).float()
+    err = (got - want).abs()
+    assert bool((err <= torch.maximum(_bf16_step(want), 2e-2 * want.abs().max())).all())
+    # weights given in fp32 are rounded to the points' bf16 first
+    assert torch.equal(decode_batch(flat.float(), pts, channels).float(), got)
+
+
+def test_decode_batch_kernel_rejects_what_it_cannot_take(cuda):
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    flat, pts = _decode_inputs((8, 16), True, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="not fully consumed"):
+        decode_batch(flat[:, :-1], pts, (8, 16))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        decode_batch(flat.double(), pts.double(), (8, 16))
+    with pytest.raises(ValueError, match="one device"):
+        decode_batch(flat.cpu(), pts, (8, 16))
+    wide, wpts = _decode_inputs((256, 256), True, 1, 64, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_batch(wide, wpts, (256, 256))
 
 
 # K8 (ops/trunk_pool.py::trunk_pooled_argmax): the pooled values are K4's,

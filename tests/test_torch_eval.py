@@ -43,7 +43,7 @@ from hyperpocket_tpu_torch.data.plyio import load_ply, save_ply
 from hyperpocket_tpu_torch.eval import evaluation as pevaluation
 from hyperpocket_tpu_torch.eval import experiments as pexp
 from hyperpocket_tpu_torch.eval import metrics as pmetrics
-from hyperpocket_tpu_torch.eval.latent_stats import LatentGaussian
+from hyperpocket_tpu_torch.eval.latent_stats import LatentGaussian, fit_latent_gaussian
 from hyperpocket_tpu_torch.ops import nn as pnn
 from hyperpocket_tpu_torch.train.config import get_results_dir_path
 from hyperpocket_tpu_torch.utils.logging_setup import seed_setup
@@ -91,12 +91,12 @@ REFS, SAMPLES = _clouds(6, 128, 2), _clouds(5, 128, 3)
 
 def test_pairwise_emd_cd_and_emd_cd():
     want = jmetrics.pairwise_emd_cd(SAMPLES, REFS, batch_size=4, row_block=2)
-    got = pmetrics.pairwise_emd_cd(SAMPLES, REFS, batch_size=4, row_block=2)
+    got = pmetrics.pairwise_emd_cd(SAMPLES, REFS, batch_size=4, row_block=2, device="cpu")
     for g, w in zip(got, want):
         assert g.shape == (5, 6)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL_METRIC)
     want = jmetrics.EMD_CD(SAMPLES, REFS[:5], batch_size=2, reduced=False)
-    got = pmetrics.EMD_CD(SAMPLES, REFS[:5], batch_size=2, reduced=False)
+    got = pmetrics.EMD_CD(SAMPLES, REFS[:5], batch_size=2, reduced=False, device="cpu")
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=RTOL_METRIC)
 
@@ -107,13 +107,13 @@ def test_pairwise_emd_cd_multi(rows):
     row_pcs = REFS if rows == "shared" else np.stack([REFS, _clouds(6, 128, 5)])
     # 60 pairs in blocks of 16: the last block is padded
     want = jmetrics.pairwise_emd_cd_multi(row_pcs, cols, pair_block=16)
-    got = pmetrics.pairwise_emd_cd_multi(row_pcs, cols, pair_block=16)
+    got = pmetrics.pairwise_emd_cd_multi(row_pcs, cols, pair_block=16, device="cpu")
     for g, w in zip(got, want):
         assert g.shape == (2, 6, 5)
         np.testing.assert_allclose(g, w, rtol=RTOL_METRIC)
     # one object through the per-object matrices is that object's own matrix
     single = pmetrics.pairwise_emd_cd(row_pcs[1] if rows == "per_object" else REFS, cols[1],
-                                      batch_size=5)
+                                      batch_size=5, device="cpu")
     np.testing.assert_allclose(got[0][1], single[0].numpy(), rtol=1e-6)
 
 
@@ -141,14 +141,46 @@ def test_mmd_cov_and_multi():
     for k in ("mmd(Fidelity)", "mmd_smp"):
         assert float(g1[k]) == pytest.approx(float(w1[k]), rel=RTOL_METRIC)
     want_all = jmetrics.compute_all_metrics(SAMPLES, REFS, batch_size=4)
-    got_all = pmetrics.compute_all_metrics(SAMPLES, REFS, batch_size=4)
+    got_all = pmetrics.compute_all_metrics(SAMPLES, REFS, batch_size=4, device="cpu")
     for k in want_all:
         assert float(got_all[k]) == pytest.approx(float(want_all[k]), rel=RTOL_METRIC), k
     sets = np.stack([SAMPLES, SAMPLES[::-1]])
     want_multi = jmetrics.compute_all_metrics_multi(sets, REFS, pair_block=64)
-    got_multi = pmetrics.compute_all_metrics_multi(sets, REFS, pair_block=64)
+    got_multi = pmetrics.compute_all_metrics_multi(sets, REFS, pair_block=64, device="cpu")
     for g, w in zip(got_multi, want_multi):
         assert g == pytest.approx(w, rel=RTOL_METRIC)
+
+
+DEFAULT_DEVICE_CALLS = {
+    "EMD_CD": lambda: pmetrics.EMD_CD(SAMPLES, REFS[:5], batch_size=2),
+    "pairwise_emd_cd": lambda: pmetrics.pairwise_emd_cd(SAMPLES, REFS, batch_size=4),
+    "pairwise_emd_cd_multi": lambda: pmetrics.pairwise_emd_cd_multi(REFS, SAMPLES[None]),
+    "compute_all_metrics": lambda: pmetrics.compute_all_metrics(SAMPLES, REFS, batch_size=4),
+    "compute_all_metrics_multi": lambda: pmetrics.compute_all_metrics_multi(SAMPLES[None], REFS),
+    "minimum_matching_distance": lambda: pevaluation.minimum_matching_distance(SAMPLES, REFS, 4),
+    "uhd_process": lambda: pevaluation.uhd_process("no_such_dir"),
+    "tmd_process": lambda: pevaluation.tmd_process("no_such_dir"),
+    "compute_trimesh_chamfer": lambda: pevaluation.compute_trimesh_chamfer(REFS[0], SAMPLES[0]),
+    "ExperimentContext": lambda: pexp.ExperimentContext(None, epoch=1),
+    "run_experiments": lambda: pexp.run_experiments({}, "no_such_dir"),
+    "fit_latent_gaussian": lambda: fit_latent_gaussian(None, SAMPLES),
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_DEVICE_CALLS))
+def test_eval_entry_points_default_to_the_card(name):
+    """Without a device, numpy inputs go to CUDA; on a host without it the call raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA, so the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DEFAULT_DEVICE_CALLS[name]()
+
+
+def test_metrics_keep_a_tensor_on_its_device():
+    got = pmetrics.pairwise_emd_cd(torch.tensor(SAMPLES), torch.tensor(REFS), batch_size=4)
+    want = pmetrics.pairwise_emd_cd(SAMPLES, REFS, batch_size=4, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu" and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k,sqrt", [(1, False), (3, True)])
@@ -169,7 +201,7 @@ def test_knn_matches_jax(k, sqrt):
 def test_trimesh_chamfer_and_prior_sampling():
     a, b = _clouds(1, 128, 16)[0], _clouds(1, 96, 17)[0]
     want = jevaluation.compute_trimesh_chamfer(a, b, offset=0.1, scale=2.0)
-    got = pevaluation.compute_trimesh_chamfer(a, b, offset=0.1, scale=2.0)
+    got = pevaluation.compute_trimesh_chamfer(a, b, offset=0.1, scale=2.0, device="cpu")
     assert got == pytest.approx(want, rel=ATOL_ART)
     prior = LatentGaussian(np.float32([1.0, -2.0]), np.float32([[0.5, 0.0], [0.2, 0.1]]))
     draws = prior.sample(torch.Generator().manual_seed(0), 20000)
@@ -341,7 +373,8 @@ def models():
 def _contexts(models, seed: int = 7):
     jmodel, params, port = models
     return (jexp.ExperimentContext(jmodel, params, epoch=5, seed=seed),
-            pexp.ExperimentContext(port, epoch=5, seed=seed, draws=JaxDraws(jmodel)))
+            pexp.ExperimentContext(port, epoch=5, seed=seed, device="cpu",
+                                   draws=JaxDraws(jmodel)))
 
 
 def _objects(n_obj: int, n_missing: int, seed: int) -> list[tuple]:

@@ -107,9 +107,10 @@ def test_chamfer_loss_auto_value_and_grads_match_jax(case):
 
 def test_streaming_dispatch_follows_the_need_for_a_gradient(monkeypatch):
     calls = []
-    one, fused = nn.nn_one_direction, nn.nn_min_fused
+    one, fused, planes = nn.nn_one_direction, nn.nn_min_fused, nn.nn_fused_planes
     monkeypatch.setattr(nn, "nn_one_direction", lambda q, k: calls.append("K1") or one(q, k))
     monkeypatch.setattr(nn, "nn_min_fused", lambda q, k: calls.append("K3") or fused(q, k))
+    monkeypatch.setattr(nn, "nn_fused_planes", lambda q, k: calls.append("K5") or planes(q, k))
     gts, preds = _clouds("rect")
     g, p = _t(gts, preds)
     value = nn.chamfer_loss_streaming(g, p)
@@ -118,9 +119,14 @@ def test_streaming_dispatch_follows_the_need_for_a_gradient(monkeypatch):
     with torch.no_grad():
         nn.chamfer_loss_streaming(g, p)
     assert calls == ["K3", "K3"]
+    # N != M under grad: one pass of K5, as the JAX package's _nn_forward_pallas
     graded = nn.chamfer_loss_streaming(g, p)
-    assert calls == ["K3", "K3", "K1", "K1"]
+    assert calls == ["K3", "K3", "K5"]
     assert abs(graded.item() - value.item()) <= FP32_TOL * value.item()
+    # N == M under grad: K1 once each way
+    square = _t(*_clouds("square"), requires_grad=True)
+    nn.chamfer_loss_streaming(*square)
+    assert calls == ["K3", "K3", "K5", "K1", "K1"]
 
 
 @pytest.mark.parametrize("dtype,n,m", [("float64", 256, 128), ("float32", 100, 70),
