@@ -12,12 +12,16 @@ Phases, each fatal on any error:
    start and at the end of the run, and turns TF32 off for fp32 matmuls and
    cuDNN.
 2. build: compiles ``hyperpocket_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
-   one nvcc per source, all started together.
+   one nvcc per source, all started together, and prints ptxas' registers,
+   shared memory and spills of the trunk kernels' two instantiations (K4,
+   K8); a spill fails the run.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
    plain PyTorch version on the card, at the serving shapes and at ragged,
-   single-cloud and tied inputs and with layer-5 biases shifted to negative
-   maxima, on the served model's weights; max |kernel - plain| <= 2e-2, the JAX
-   package's bound for this kernel; both timed with CUDA events.
+   single-cloud, odd-tile-count (1, 2, 5 tiles) and tied inputs and with
+   layer-5 biases shifted to negative maxima, on the served model's weights;
+   max |kernel - plain| <= 2e-2, the JAX package's bound for this kernel;
+   timed with CUDA events beside the plain version and the cuBLAS bf16 chain
+   (+ ``amax``), with the ratio to the chain and the share of the bound.
 4. serving slice: the chair config at full width in bf16, weights from seed 1856
    (every bias drawn anew, distinct per channel, as trained weights have
    them; initialisation zeroes most of them), written as a JAX-layout checkpoint and served through
@@ -76,14 +80,16 @@ Phases, each fatal on any error:
    of each experiment and of its parts is printed.
 
 12. trunk-argmax kernel K8 vs plain (``ops/trunk_pool.py::trunk_pooled_argmax``)
-   on the served model's encoder at B=64 and B=256 (N=1024), ragged clouds and
-   duplicated points (in one tile and across tiles): pooled values equal to
+   on the served model's encoder at B=64 and B=256 (N=1024), ragged clouds,
+   1, 2 and 5 tiles, and duplicated points (in one tile, across tiles, in
+   the two CTAs of a cluster and across clusters): pooled values equal to
    K4's bits and to the maxima of the kernel's own per-point values (K4 on
    single points), indices the first point reaching them; against the plain
    version pooled within 2e-2, the plain value at K8's point within 2e-2 of
    the plain maximum, indices equal where that maximum leads its channel by
    more than 4e-2, duplicates resolved to the first copy, two launches equal;
-   K8 timed beside K4, the plain version and cuBLAS bf16 + ``torch.max``.
+   K8 timed beside K4, the plain version and cuBLAS bf16 + ``torch.max``,
+   with the ratio to the latter.
 13. head-Adam kernel K11 vs plain (``ops/head_adam.py``) at the head's shape
    (19011 x 2048, B=64), bf16 inputs and moments, count 5: p within 2 lr
    everywhere and within two fp32 steps plus 1e-5 lr on all but 1e-4 of the
@@ -289,6 +295,23 @@ def clouds_per_s(fn, batch: int, iters: int = 10, windows: int = 5, warmup: int 
             "window_clouds_per_s": [batch * iters / s for s in seconds]}
 
 
+def trunk_ptxas(log: Path) -> list:
+    """ptxas' registers, shared memory and spills of K4's and K8's kernel
+    (both instantiations of ``trunk_pool_kernel``); spills fail the run."""
+    from hyperpocket_tpu_torch.ops import _build
+
+    report = _build.ptxas_report(log.read_text(), "trunk_pool_kernel")
+    for entry in report:
+        print(f"ptxas {entry['function']}: {entry.get('registers')} registers, "
+              f"{entry.get('static_smem')} bytes static shared memory, "
+              f"{entry.get('spill_stores')} bytes spill stores, "
+              f"{entry.get('spill_loads')} bytes spill loads")
+    check(len(report) == 2, f"ptxas reported {len(report)} trunk kernels, expected 2")
+    check(all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0 for e in report),
+          "the trunk kernels spill registers")
+    return report
+
+
 def build_model(compute_dtype: str):
     """The chair config at full width; weights and biases drawn from SEED."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
@@ -329,6 +352,10 @@ def kernel_vs_plain(served, device) -> dict:
         "B64_N1024": (layers, cloud(SERVE_BATCH, N_EXISTING)),
         "B3_N200": (layers, cloud(3, 200)),
         "B1_N8": (layers, cloud(1, 8)),
+        # 2 and 5 tiles: with B3_N200's 6 and B1_N8's 1, odd counts leave the
+        # second CTA of the last cluster without a tile
+        "B1_N136": (layers, cloud(1, 136)),
+        "B5_N128": (layers, cloud(5, 128)),
         "ties_B2_N128": (layers, ties),
         "negative_B2_N128": (negative, ties),
     }
@@ -355,6 +382,8 @@ def kernel_vs_plain(served, device) -> dict:
             "bf16_matmul_chain_ms": cuda_ms(lambda: encoder.conv_stack(x).amax(dim=1), iters=10),
             **trunk_bound(x.shape[0], x.shape[1], 2),
         }
+        times[name]["ratio_to_chain"] = times[name]["kernel_ms"] / times[name]["bf16_matmul_chain_ms"]
+        times[name]["share_of_bound"] = times[name]["bound_ms"] / times[name]["kernel_ms"]
         print(f"trunk timing {name}: {json.dumps(times[name])}")
     return {"max_abs_err": max(errs.values()), "errs": errs, "times": times}
 
@@ -395,14 +424,22 @@ def trunk_argmax_vs_plain(served, device) -> dict:
     def cloud(b, n):
         return (torch.randn((b, n, 3), generator=gen, device=device) * 0.3).to(bf16)
 
-    dup64, dup200 = cloud(2, 64), cloud(2, 200)
+    dup64, dup200, dup72, dup192 = cloud(2, 64), cloud(2, 200), cloud(2, 72), cloud(2, 192)
     cases = {
         "B64_N1024": cloud(TRAIN_BATCH, N_EXISTING),  # the training shape
         "B256_N1024": cloud(BENCH_BATCH, N_EXISTING),
         "B3_N200": cloud(3, 200),
-        # every point twice: in one tile (64 apart) and across tiles (200 apart)
+        # 1, 2 and 5 tiles: the last cluster's second CTA has no tile
+        "B1_N8": cloud(1, 8),
+        "B1_N136": cloud(1, 136),
+        "B5_N128": cloud(5, 128),
+        # every point twice: in one tile (64 apart), across tiles (200 apart),
+        # in the two CTAs of one cluster (72 apart: tiles 0 and 1) and, with
+        # three tiles a cloud (192 apart), in tiles of two clusters
         "dup_B2_N128": torch.cat([dup64, dup64], dim=1).contiguous(),
         "dup_B2_N400": torch.cat([dup200, dup200], dim=1).contiguous(),
+        "dup_B2_N144": torch.cat([dup72, dup72], dim=1).contiguous(),
+        "dup_B2_N384": torch.cat([dup192, dup192], dim=1).contiguous(),
     }
     out = {"cases": {}}
     err = 0.0
@@ -451,6 +488,8 @@ def trunk_argmax_vs_plain(served, device) -> dict:
             "library_ms": cuda_ms(lambda: torch.max(encoder.conv_stack(x), dim=1), iters=10),
             **trunk_bound(x.shape[0], x.shape[1], 2 + 4),
         }
+        t["ratio_to_library"] = t["ms"] / t["library_ms"]
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
         out["times"][name] = t
         print(f"K8 timing {name}: {json.dumps(t)}")
     return out
@@ -1761,6 +1800,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib._name}")
+    trunk_ptxas(Path(lib._name).parent / _build.LOG_NAME)
 
     config, model = build_model("bfloat16")
     model32 = copy.deepcopy(model)

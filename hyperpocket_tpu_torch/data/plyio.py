@@ -3,9 +3,8 @@
 The (N, 3) x/y/z subset of ``hyperpocket_tpu/data/plyio.py``, kept inside
 this package so that the port runs without importing the JAX package:
 ``load_ply`` reads the vertex x/y/z from ascii, binary_little_endian or
-binary_big_endian files. The vertex element must have scalar properties
-only, and in binary files so must the elements before it; anything else
-raises ``PlyParseError``.
+binary_big_endian files, skipping the payload of any list property on the
+vertex element or on the elements before it.
 ``save_ply`` writes binary little-endian float x/y/z, byte for byte the
 JAX package's layout.
 """
@@ -47,7 +46,8 @@ def _parse_header(f) -> tuple[str, list[tuple[str, int, list[tuple[str, str]]]]]
         elif tokens[0] == "property":
             if not elements:
                 raise PlyParseError("property before element")
-            ptype = "list" if tokens[1] == "list" else tokens[1]
+            # a list is ("list", count type, value type); a scalar its type name
+            ptype = ("list", tokens[2], tokens[3]) if tokens[1] == "list" else tokens[1]
             elements[-1][2].append((tokens[-1], ptype))
         elif tokens[0] == "end_header":
             break
@@ -69,28 +69,84 @@ def load_ply(path: str | os.PathLike) -> np.ndarray:
         for axis in ("x", "y", "z"):
             if axis not in pnames:
                 raise PlyParseError(f"{path}: vertex missing property {axis!r}")
-        before = elements[:vi] if fmt != "ascii" else []  # ascii skips whole lines
-        if any(t == "list" for _, _, props in before + [elements[vi]] for _, t in props):
-            raise PlyParseError(f"{path}: list properties in or (binary) before the vertex "
-                                "element are not supported")
         if fmt == "ascii":
+            # one line a row whatever its lists: skip the earlier elements' lines
             skip = sum(e[1] for e in elements[:vi])
             lines = f.read().decode("ascii").splitlines()[skip:skip + count]
-            if len(lines) != count:
+            if len(lines) != count or not all(line.split() for line in lines):
                 raise PlyParseError(f"{path}: truncated vertex data")
-            cols = [pnames.index(a) for a in ("x", "y", "z")]
-            return np.array([[float(line.split()[c]) for c in cols] for line in lines],
+            return np.array([_ascii_xyz(line.split(), vprops) for line in lines],
                             dtype=np.float32).reshape(count, 3)
         endian = {"binary_little_endian": "<", "binary_big_endian": ">"}.get(fmt)
         if endian is None:
             raise PlyParseError(f"{path}: unsupported PLY format {fmt!r}")
-        dtypes = [(n_rows, np.dtype([(n, endian + _PLY_TO_NUMPY[t]) for n, t in props]))
-                  for _, n_rows, props in elements[: vi + 1]]
-        f.seek(sum(n * dt.itemsize for n, dt in dtypes[:-1]), os.SEEK_CUR)
-        raw = np.fromfile(f, dtype=dtypes[-1][1], count=count)
-        if raw.shape[0] != count:
-            raise PlyParseError(f"{path}: truncated vertex data")
-        return np.stack([raw["x"], raw["y"], raw["z"]], axis=1).astype(np.float32)
+        buf = f.read()
+        pos = 0
+        for name, n_rows, props in elements[:vi]:
+            pos = _skip_binary_rows(path, buf, pos, name, n_rows, props, endian)
+        if all(not isinstance(t, tuple) for _, t in vprops):
+            dtype = np.dtype([(n, endian + _PLY_TO_NUMPY[t]) for n, t in vprops])
+            if pos + dtype.itemsize * count > len(buf):
+                raise PlyParseError(f"{path}: truncated vertex data")
+            raw = np.frombuffer(buf, dtype=dtype, count=count, offset=pos)
+            return np.stack([raw["x"], raw["y"], raw["z"]], axis=1).astype(np.float32)
+        out = np.empty((count, 3), dtype=np.float32)
+        for r in range(count):
+            row = {}
+            for pname, ptype in vprops:
+                if isinstance(ptype, tuple):
+                    pos = _skip_list(path, buf, pos, ptype, endian)
+                else:
+                    if pname in ("x", "y", "z"):
+                        row[pname] = _scalar(path, buf, pos, ptype, endian)
+                    pos += np.dtype(_PLY_TO_NUMPY[ptype]).itemsize
+            if pos > len(buf):
+                raise PlyParseError(f"{path}: truncated vertex data")
+            out[r] = (row["x"], row["y"], row["z"])
+        return out
+
+
+def _ascii_xyz(tokens: list[str], props) -> tuple[float, float, float]:
+    """x, y, z of one ascii vertex row; a list's payload is its count, then the values."""
+    row, i = {}, 0
+    for pname, ptype in props:
+        if isinstance(ptype, tuple):
+            i += 1 + int(tokens[i])
+        else:
+            if pname in ("x", "y", "z"):
+                row[pname] = float(tokens[i])
+            i += 1
+    return row["x"], row["y"], row["z"]
+
+
+def _scalar(path, buf: bytes, at: int, ptype: str, endian: str):
+    dtype = np.dtype(endian + _PLY_TO_NUMPY[ptype])
+    if at + dtype.itemsize > len(buf):
+        raise PlyParseError(f"{path}: truncated element data")
+    return np.frombuffer(buf, dtype, count=1, offset=at)[0]
+
+
+def _skip_list(path, buf: bytes, pos: int, ptype, endian: str) -> int:
+    """The offset past one binary list: its count, then that many values."""
+    _, count_type, value_type = ptype
+    n = int(_scalar(path, buf, pos, count_type, endian))
+    return (pos + np.dtype(_PLY_TO_NUMPY[count_type]).itemsize
+            + n * np.dtype(_PLY_TO_NUMPY[value_type]).itemsize)
+
+
+def _skip_binary_rows(path, buf: bytes, pos: int, name: str, n_rows: int, props,
+                      endian: str) -> int:
+    """The offset past ``n_rows`` binary rows of an element before the vertex."""
+    if all(not isinstance(t, tuple) for _, t in props):
+        pos += n_rows * sum(np.dtype(_PLY_TO_NUMPY[t]).itemsize for _, t in props)
+    else:
+        for _ in range(n_rows):
+            for _, ptype in props:
+                pos = (_skip_list(path, buf, pos, ptype, endian) if isinstance(ptype, tuple)
+                       else pos + np.dtype(_PLY_TO_NUMPY[ptype]).itemsize)
+    if pos > len(buf):
+        raise PlyParseError(f"{path}: truncated element {name!r}")
+    return pos
 
 
 def save_ply(path: str | os.PathLike, points: np.ndarray) -> None:

@@ -6,7 +6,10 @@ linked into one shared library with a plain C interface, in
 ``hyperpocket_tpu_torch/_build/<hash>/`` where the hash covers the sources,
 the headers beside them and the flags: a changed source builds anew, an
 unchanged one loads the library already there. The sources include no
-PyTorch header, so a build takes seconds rather than minutes.
+PyTorch header, so a build takes seconds rather than minutes. ptxas reports
+each kernel's registers, shared memory and spills (``-Xptxas -v``); the
+report is kept beside the library as ``LOG_NAME`` and read back by
+``ptxas_report``.
 
 A build failure raises; nothing falls back to another implementation.
 """
@@ -17,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,8 +29,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libhpcd_torch_kernels.so"
+LOG_NAME = "nvcc.log"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
@@ -68,9 +73,10 @@ def build(out_dir: Path, nvcc: str | None = None) -> Path:
                 for src, obj in zip(sources(), objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in compiles]
-    failures = []
+    failures, logs = [], []
     for cmd, proc in zip(compiles, procs):
         out, err = proc.communicate()
+        logs.append(f"{' '.join(cmd)}\n{out}{err}")
         if proc.returncode != 0:
             failures.append(f"exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}{err}")
     try:
@@ -85,8 +91,34 @@ def build(out_dir: Path, nvcc: str | None = None) -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    log_tmp = out_dir / f"{LOG_NAME}.{tag}.tmp"
+    log_tmp.write_text("\n".join(logs))
+    os.replace(log_tmp, out_dir / LOG_NAME)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def ptxas_report(log: str, kernel: str) -> list[dict]:
+    """Registers, shared memory and spills of every entry function whose
+    (mangled) name holds ``kernel``, from an ``nvcc -Xptxas -v`` log."""
+    report, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = None
+            if kernel in entry.group(1):
+                current = {"function": entry.group(1)}
+                report.append(current)
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                current["spill_stores"], current["spill_loads"] = map(int, spill.groups())
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                current["registers"] = int(regs.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                current["static_smem"] = int(smem.group(1)) if smem else 0
+    return report
 
 
 @functools.cache

@@ -97,6 +97,19 @@ def _kernel(symbol: str, n_pointers: int):
     return fn
 
 
+def _check_alignment(args: list[torch.Tensor]) -> None:
+    """Raise on layer tensors the kernels cannot read, ``args`` being
+    [w1, b1, ..., w5, b5]: the weights of layers 2-5 reach shared memory by
+    TMA, which takes 16-byte aligned rows; the rest are read in 4-byte words."""
+    for i, t in enumerate(args):
+        layer, is_bias = divmod(i, 2)
+        align = 4 if is_bias or layer == 0 else 16
+        if t.data_ptr() % align:
+            name = "bias" if is_bias else "weight"
+            raise ValueError(f"the trunk kernel takes a {align}-byte aligned layer {layer + 1} "
+                             f"{name}, got address {t.data_ptr():#x}")
+
+
 def _kernel_operands(layers: Layers, x: torch.Tensor) -> list[torch.Tensor]:
     """The layers as contiguous bf16 tensors on x's device; raise on what the kernels refuse."""
     if x.device.type != "cuda":
@@ -113,9 +126,8 @@ def _kernel_operands(layers: Layers, x: torch.Tensor) -> list[torch.Tensor]:
             t = t.to(torch.bfloat16).contiguous()
             if t.device != x.device:
                 raise ValueError(f"layer tensor on {t.device}, x on {x.device}")
-            if t.data_ptr() % 4:
-                raise ValueError("the trunk kernel reads layer tensors as 4-byte words")
             args.append(t)
+    _check_alignment(args)
     return args
 
 

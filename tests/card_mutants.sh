@@ -1,33 +1,43 @@
 #!/bin/bash
-# Mutation checks of the K5, K8, K9, K10 and K11 CUDA kernels, on a machine
-# with the card.
+# Mutation checks of the K4, K5, K8, K9, K10 and K11 CUDA kernels, on a
+# machine with the card.
 #
-#   bash tests/card_mutants.sh
+#   bash tests/card_mutants.sh [prefix ...]
 #
+# With prefixes (k4, k8, ...) only the mutants whose names start with one
+# of them run.
 # Each mutant is a copy of the tree under $TMPDIR with one kernel line edited
 # by sed (the tree itself is never edited). For each, the smoke's phase
-# function (chip_smoke.py::head_adam_vs_plain, trunk_argmax_vs_plain,
-# nn_fused_vs_plain, chamfer_fused_vs_plain or decode_vs_plain) and the
-# matching card tests of tests/test_torch_cuda.py run in the copy; a mutant
-# is caught when the phase raises SmokeFailure and card tests fail.
+# function (chip_smoke.py::head_adam_vs_plain, kernel_vs_plain,
+# trunk_argmax_vs_plain, nn_fused_vs_plain, chamfer_fused_vs_plain or
+# decode_vs_plain) and the matching card tests of tests/test_torch_cuda.py
+# run in the copy; a mutant is caught when the phase fails (SmokeFailure, or
+# a CUDA error: the trunk kernel traps a pipeline wait that lasts seconds)
+# and card tests fail.
+#   k4_idle_arrival  a CTA without a tile (odd tile counts) skips its
+#                    pipeline: no barrier arrivals for its partner
+#   k4_slab_swizzle  the epilogues write the second 64-column slab with the
+#                    wrong swizzle
 #   k11_last_row   K11 drops the last batch row of every 32-row chunk
-#   k8_lane_ties   K8 merges lanes' equal maxima to the later row
+#   k8_lane_ties   K8's keys inside a tile prefer the later of equal rows
 #   k8_tile_ties   K8 merges tiles' equal maxima to the later tile
 #   k5_pair_ties   K5's butterfly keeps the later query of equal distances
 #   k9_dir2_sign   K9 scatters direction 2 into grad_a with the wrong sign
 #   k10_bias       K10 drops the hidden layers' bias of every second point
 cd "$(dirname "$0")/.."
 tmp=${TMPDIR:-/tmp}
+only=" $* "
 K11_PY='import torch, chip_smoke as c
 try:
     c.head_adam_vs_plain(torch.device("cuda", 0)); print("MUTANT SURVIVED the smoke phase")
 except c.SmokeFailure as e: print("MUTANT CAUGHT by the smoke phase:", e)'
-K8_PY='import torch, chip_smoke as c
+TRUNK_PY='import sys, torch, chip_smoke as c
 d = torch.device("cuda", 0)
 _, model = c.build_model("bfloat16")
+phase = c.kernel_vs_plain if sys.argv[1] == "k4" else c.trunk_argmax_vs_plain
 try:
-    c.trunk_argmax_vs_plain(model.serving_params().to(d), d); print("MUTANT SURVIVED the smoke phase")
-except c.SmokeFailure as e: print("MUTANT CAUGHT by the smoke phase:", e)'
+    phase(model.serving_params().to(d), d); print("MUTANT SURVIVED the smoke phase")
+except Exception as e: print("MUTANT CAUGHT by the smoke phase:", type(e).__name__, str(e).strip().splitlines()[0])'
 PHASE_PY='import copy, sys, torch, chip_smoke as c
 d = torch.device("cuda", 0)
 _, model = c.build_model("bfloat16")
@@ -43,6 +53,7 @@ except c.SmokeFailure as e: print("MUTANT CAUGHT by the smoke phase:", e)'
 
 mutant () {  # name, source file under csrc/, python check, pytest -k, sed expressions...
   name=$1; file=$2; check=$3; tests=$4; shift 4
+  if [ "$only" != "  " ] && [[ "$only" != *" ${name%%_*} "* ]]; then return; fi
   copy=$tmp/mutant_$name
   rm -rf "$copy"; mkdir -p "$copy"
   tar --exclude=./_smoke_checkout --exclude=./hyperpocket_tpu_torch/_build \
@@ -61,10 +72,15 @@ mutant () {  # name, source file under csrc/, python check, pytest -k, sed expre
 
 mutant k11_last_row head_adam.cu "$K11_PY" head_adam \
   's/for (int b = 0; b < rows; ++b) {/for (int b = 0; b < rows - 1; ++b) {/'
-mutant k8_lane_ties trunk_pool.cu "$K8_PY" argmax \
-  's/(v == m \&\& row < r)/(v == m \&\& row > r)/'
-mutant k8_tile_ties trunk_pool.cu "$K8_PY" argmax \
-  's/(0xFFFFFFFFu - (unsigned)(row0 + r\([01]\)))/((unsigned)(row0 + r\1))/' \
+mutant k4_idle_arrival trunk_pool.cu "$TRUNK_PY" trunk \
+  's/int cloud = 0, row0 = 0, valid_rows = 0;/if (tile >= p.tiles) continue; int cloud = 0, row0 = 0, valid_rows = 0;/'
+mutant k4_slab_swizzle trunk_pool.cu "$TRUNK_PY" "trunk and not argmax" \
+  's/((cc >> 3) ^ (row \& 7))/((cc >> 3) ^ ((row + (col >> 6 == 1)) \& 7))/'
+mutant k8_lane_ties trunk_pool.cu "$TRUNK_PY" argmax \
+  's/(0xFFFFu - (uint32_t)row)/((uint32_t)row)/' \
+  's/0xFFFF - (int)(key \& 0xFFFFu)/(int)(key \& 0xFFFFu)/'
+mutant k8_tile_ties trunk_pool.cu "$TRUNK_PY" argmax \
+  's/(0xFFFFFFFFu - (unsigned)(row0 + row_key_row(m)))/((unsigned)(row0 + row_key_row(m)))/' \
   's/idx\[i\] = (int)(0xFFFFFFFFu - (unsigned)(k \& 0xFFFFFFFFull));/idx[i] = (int)(k \& 0xFFFFFFFFull);/'
 mutant k5_pair_ties nn_fused.cuh "$PHASE_PY" fused_planes \
   's/(other_d == keep_d \&\& other_i < keep_i)/(other_d == keep_d \&\& other_i > keep_i)/'

@@ -44,7 +44,9 @@ def _cloud(b: int, n: int, seed: int = 0) -> torch.Tensor:
     return (torch.randn((b, n, 3), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("shape", [(64, 1024), (3, 200), (1, 8), (2, 72)])
+# (1, 8), (1, 136), (5, 128) and (3, 200) give 1, 2, 5 and 6 tiles: odd counts
+# leave the second CTA of the last cluster without a tile
+@pytest.mark.parametrize("shape", [(64, 1024), (3, 200), (1, 8), (2, 72), (1, 136), (5, 128)])
 def test_trunk_kernel_matches_reference(layers, shape):
     x = _cloud(*shape)
     before = trunk_pooled.launches
@@ -570,7 +572,7 @@ def _check_argmax(layers, x, pooled, idx):
     assert torch.equal(idx[clear], want_idx[clear].int())
 
 
-@pytest.mark.parametrize("shape", [(64, 1024), (3, 200), (1, 8), (2, 72)])
+@pytest.mark.parametrize("shape", [(64, 1024), (3, 200), (1, 8), (2, 72), (1, 136), (5, 128)])
 def test_trunk_argmax_kernel_matches_reference(layers, shape):
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
 
@@ -588,10 +590,11 @@ def test_trunk_argmax_kernel_matches_reference(layers, shape):
     assert torch.equal(again[0], pooled) and torch.equal(again[1], idx)
 
 
-@pytest.mark.parametrize("base_points", [64, 128, 200])
+@pytest.mark.parametrize("base_points", [64, 128, 200, 72, 192])
 def test_trunk_argmax_first_index_of_duplicates(layers, base_points):
     """Every point twice, base_points apart (in one tile, or in another tile):
-    the first copy's index wins."""
+    the first copy's index wins. 128 and 72 put the copies in the two CTAs of
+    one cluster; 192 (three tiles a cloud) also in tiles of two clusters."""
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
 
     base = _cloud(2, base_points, seed=2)

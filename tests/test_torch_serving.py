@@ -217,14 +217,52 @@ def test_ply_reader_matches_jax(tmp_path, fmt):
 
 @pytest.mark.parametrize("fmt", ["binary_little_endian", "ascii"])
 def test_ply_reader_rejects_vertex_lists(tmp_path, fmt):
+    """Lists on the vertex are read past, as the JAX reader does; a file cut
+    inside the vertex rows is refused."""
     pts = np.random.default_rng(5).normal(size=(4, 3)).astype(np.float32)
-    path = str(tmp_path / "lists.ply")
-    jax_plyio.save_ply_elements(path, [
+    path = tmp_path / "lists.ply"
+    jax_plyio.save_ply_elements(str(path), [
         ("vertex", [("idx", jax_plyio.ListProperty([[1], [2, 3], [], [4]])), ("x", pts[:, 0]),
                     ("y", pts[:, 1]), ("z", pts[:, 2])]),
     ], fmt=fmt)
-    with pytest.raises(PlyParseError, match="list properties"):
+    np.testing.assert_array_equal(load_ply(path), pts)
+    data = path.read_bytes()
+    cut = data[:len(data) - (8 if fmt != "ascii" else len(data.splitlines(True)[-1]))]
+    path.write_bytes(cut)
+    with pytest.raises(PlyParseError, match="truncated"):
         load_ply(path)
+
+
+def _ply_case(path: str, case: str) -> None:
+    """One of the five files of the reader's parity test, written with the JAX writer."""
+    rng = np.random.default_rng(7)
+    pts = rng.normal(size=(6, 3)).astype(np.float32)
+    faces = ("face", [("vertex_indices", jax_plyio.ListProperty(
+        [[0, 1, 2], [2, 3, 4, 5], []], count_type="uchar", value_type="int"))])
+    vertex = [("x", pts[:, 0]), ("y", pts[:, 1]), ("z", pts[:, 2])]
+    listed = [("n", jax_plyio.ListProperty([[1.5], [], [2.0, 3.0], [4.0], [], [5.0, 6.0, 7.0]],
+                                            count_type="uchar", value_type="float")),
+              *vertex, ("tag", jax_plyio.ListProperty([[1, 2], [], [3], [], [4], [5]]))]
+    elements, fmt = {
+        "binary_vertex_list": ([("vertex", listed)], "binary_little_endian"),
+        "binary_face_first": ([faces, ("vertex", vertex)], "binary_little_endian"),
+        "ascii_vertex_list": ([faces, ("vertex", listed)], "ascii"),
+        "big_endian": ([faces, ("vertex", listed)], "binary_big_endian"),
+        "plain": ([("vertex", vertex)], "binary_little_endian"),
+    }[case]
+    jax_plyio.save_ply_elements(path, elements, fmt=fmt)
+
+
+@pytest.mark.parametrize("case", ["binary_vertex_list", "binary_face_first", "ascii_vertex_list",
+                                  "big_endian", "plain"])
+def test_ply_reader_matches_jax_numpy_reader(tmp_path, case):
+    """The port's reader returns exactly what ``_load_ply_numpy`` returns."""
+    path = str(tmp_path / f"{case}.ply")
+    _ply_case(path, case)
+    got = load_ply(path)
+    want = jax_plyio._load_ply_numpy(path)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (6, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_ply_writer_matches_jax_bytes(tmp_path):

@@ -20,7 +20,7 @@ from hyperpocket_tpu.models.encoder import _trunk, init_encoder
 from hyperpocket_tpu.ops.pallas_encoder import trunk_pooled as jax_trunk_pooled
 from hyperpocket_tpu_torch.convert import params_from_jax
 from hyperpocket_tpu_torch.models.encoder import Encoder
-from hyperpocket_tpu_torch.ops import _build
+from hyperpocket_tpu_torch.ops import _build, trunk_pool
 from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_reference
 
 torch.set_float32_matmul_precision("highest")
@@ -171,3 +171,68 @@ def test_build_hash_covers_sources_and_flags(monkeypatch, tmp_path):
         monkeypatch.undo()
     assert _build.source_hash() == base
     assert os.path.basename(_build.BUILD_ROOT) == "_build"
+
+
+def _aligned_layers() -> list[torch.Tensor]:
+    """[w1, b1, ..., w5, b5] as fresh (aligned) bf16 tensors."""
+    widths = trunk_pool.WIDTHS
+    out = []
+    for i in range(len(widths) - 1):
+        out += [torch.zeros((widths[i + 1], widths[i]), dtype=torch.bfloat16),
+                torch.zeros(widths[i + 1], dtype=torch.bfloat16)]
+    return out
+
+
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of t whose data starts ``nbytes`` past an aligned address."""
+    flat = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    shift = (-flat.data_ptr() % 64 + nbytes) // t.element_size()
+    view = flat[shift:shift + t.numel()].view(t.shape)
+    assert view.data_ptr() % 64 == nbytes
+    return view
+
+
+@pytest.mark.parametrize("index, nbytes, ok", [
+    (2, 8, False),   # w2 8 bytes off: TMA takes 16-byte aligned rows
+    (8, 2, False),   # w5 2 bytes off
+    (6, 16, True),   # w4 16 bytes off: fine
+    (5, 2, False),   # b3 read in 4-byte words
+    (5, 4, True),
+    (0, 4, True),    # w1 is read in plain loads
+    (0, 2, False),
+])
+def test_alignment_check_refuses_what_the_copies_cannot_take(index, nbytes, ok):
+    args = _aligned_layers()
+    trunk_pool._check_alignment(args)
+    args[index] = _offset(args[index], nbytes)
+    if ok:
+        trunk_pool._check_alignment(args)
+    else:
+        layer, is_bias = divmod(index, 2)
+        with pytest.raises(ValueError, match=f"aligned layer {layer + 1} "
+                                             f"{'bias' if is_bias else 'weight'}"):
+            trunk_pool._check_alignment(args)
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """nvcc -c trunk_pool.cu
+ptxas info    : Compiling entry function '_Z17trunk_pool_kernelILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z17trunk_pool_kernelILb1EEvv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 640 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z12fill_neg_infPfi' for 'sm_90a'
+ptxas info    : Function properties for _Z12fill_neg_infPfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers, 364 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z17trunk_pool_kernelILb0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z17trunk_pool_kernelILb0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, 48 bytes smem, 640 bytes cmem[0]
+"""
+    assert _build.ptxas_report(log, "trunk_pool_kernel") == [
+        {"function": "_Z17trunk_pool_kernelILb1EEvv", "spill_stores": 8, "spill_loads": 4,
+         "registers": 168, "static_smem": 0},
+        {"function": "_Z17trunk_pool_kernelILb0EEvv", "spill_stores": 0, "spill_loads": 0,
+         "registers": 167, "static_smem": 48},
+    ]
+    assert "-v" in _build.NVCC_FLAGS and "-Xptxas" in _build.NVCC_FLAGS
