@@ -14,7 +14,8 @@ Phases, each fatal on any error:
 2. build: compiles ``hyperpocket_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one nvcc per source, all started together, and prints ptxas' registers,
    shared memory and spills of the trunk kernels' two instantiations (K4,
-   K8); a spill fails the run.
+   K8) and of the fused NN sweep's two copies (K5, K9); a spill fails the
+   run.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
    plain PyTorch version on the card, at the serving shapes and at ragged,
    single-cloud, odd-tile-count (1, 2, 5 tiles) and tied inputs and with
@@ -114,15 +115,20 @@ Phases, each fatal on any error:
    launch once each and K1 never, the gradient that of ``nn_backward``. K5
    against its plain version and against K1 run once each way at B=64 with
    1024x2048, 2048x1024 and 2048x2048, ragged clouds, more keys than one
-   staged chunk, duplicated points on both sides and clouds of one repeated
-   point: distances bit-equal, indices equal. Timed at 1024x2048 and 2048²
-   beside K1 twice, the plain version and cdist + min/argmin both ways.
+   staged chunk, duplicated points on both sides, duplicated keys half the
+   cloud apart (in different key splits) and clouds of one repeated point:
+   distances bit-equal, indices equal; the M=4500 case again with the keys
+   in one and in two splits, so that a block sweeps several chunks through
+   its double buffer. Timed at 1024x2048, 2048x1024 and 2048² beside K1
+   twice (``ratio_to_k1_twice``), K3, the plain version and cdist +
+   min/argmin both ways, with the share of the bound reached.
 17. K9 (``chamfer_loss_grad``) through ``chamfer_loss_fused`` at B=64,
    2048x2048 and 2048x1024: one launch per value and gradient; value and
    per-sample losses within 1e-5 relative of K3's; both fields within 1e-5
    of their largest entry against ``nn_backward`` on K5's indices; the
    gradient of 3 loss 3x the gradient; against the plain autograd by phase
-   7's near-tie rules. Timed beside phase 7's route and the plain version.
+   7's near-tie rules. Timed beside phase 7's route, K3 (``ratio_to_k3``)
+   and the plain version, with the share of the bound reached.
 18. K10 (``decode_batch``) on the served model's own flat weights (the
    hypernetwork's output for B=256 and B=64 requests, bf16 and fp32) and
    ball points, N=2048, through ``ops.decode_batch`` (one launch each):
@@ -295,20 +301,22 @@ def clouds_per_s(fn, batch: int, iters: int = 10, windows: int = 5, warmup: int 
             "window_clouds_per_s": [batch * iters / s for s in seconds]}
 
 
-def trunk_ptxas(log: Path) -> list:
-    """ptxas' registers, shared memory and spills of K4's and K8's kernel
-    (both instantiations of ``trunk_pool_kernel``); spills fail the run."""
+def ptxas_check(log: Path, kernel: str, what: str) -> list:
+    """ptxas' registers, shared memory and spills of the two entry functions
+    whose names hold ``kernel``: K4's and K8's instantiations of
+    ``trunk_pool_kernel``, or the copies of ``nn_fused_kernel`` in K5's and
+    K9's sources. Spills fail the run."""
     from hyperpocket_tpu_torch.ops import _build
 
-    report = _build.ptxas_report(log.read_text(), "trunk_pool_kernel")
+    report = _build.ptxas_report(log.read_text(), kernel)
     for entry in report:
         print(f"ptxas {entry['function']}: {entry.get('registers')} registers, "
               f"{entry.get('static_smem')} bytes static shared memory, "
               f"{entry.get('spill_stores')} bytes spill stores, "
               f"{entry.get('spill_loads')} bytes spill loads")
-    check(len(report) == 2, f"ptxas reported {len(report)} trunk kernels, expected 2")
+    check(len(report) == 2, f"ptxas reported {len(report)} {what} kernels, expected 2")
     check(all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0 for e in report),
-          "the trunk kernels spill registers")
+          f"the {what} kernels spill registers")
     return report
 
 
@@ -1419,10 +1427,12 @@ def nn_fused_vs_plain(model32, device) -> dict:
     """Phase 16: K5 on the partial-to-completion NN path, and against its
     plain version and K1 run once each way."""
     from hyperpocket_tpu_torch import ops, serving
+    from hyperpocket_tpu_torch.ops import nn
     from hyperpocket_tpu_torch.ops.chamfer import nn_backward
     from hyperpocket_tpu_torch.ops.nn import (
         nn_fused_planes,
         nn_fused_planes_reference,
+        nn_min_fused,
         nn_one_direction,
     )
 
@@ -1460,6 +1470,7 @@ def nn_fused_vs_plain(model32, device) -> dict:
           "chamfer_loss_auto differs from the summed K5 distances")
 
     dup_q, dup_k = cloud(2, 128), cloud(2, 96)
+    half = cloud(4, 1001)
     cases = {
         "B64_1024x2048": (cloud(TRAIN_BATCH, N_EXISTING), cloud(TRAIN_BATCH, N_OUT)),
         "B64_2048x1024": (cloud(TRAIN_BATCH, N_OUT), cloud(TRAIN_BATCH, N_EXISTING)),
@@ -1471,6 +1482,11 @@ def nn_fused_vs_plain(model32, device) -> dict:
                                 torch.cat([dup_k, dup_k], dim=1).contiguous()),
         "equal_points_B2_128x96": (cloud(2, 1).expand(2, 128, 3).contiguous(),
                                    cloud(2, 1).expand(2, 96, 3).contiguous()),
+        # key j again at j + ceil(M / 2), in another key split: the first copy wins
+        "dup_split_B4_600x2001": (cloud(4, 600), torch.cat([half, half[:, :1000]], dim=1)),
+        # M a multiple of neither the split count nor 32; one tile, many splits
+        "ragged_split_B8_700x1000": (cloud(8, 700), cloud(8, 1000)),
+        "one_tile_B1_64x4500": (cloud(1, 64), cloud(1, 4500)),
     }
     err = 0.0
     for name, (q, k) in cases.items():
@@ -1483,15 +1499,31 @@ def nn_fused_vs_plain(model32, device) -> dict:
                   f"{name}: K5 {tag} differs from the plain version's at "
                   f"{int((g != p).sum())} points")
             check(torch.equal(g, o), f"{name}: K5 {tag} differs from K1's")
-        if name.startswith("dup"):
+        if name.startswith("dup_both"):
             check(int(got[1].max()) < 96 and int(got[3].max()) < 128,
                   f"{name}: a tie did not go to the first copy")
+        if name.startswith("dup_split"):
+            check(int(got[1].max()) < 1001, f"{name}: a tie did not go to the first copy")
         err = max(err, (got[0] - plain[0]).abs().max().item(),
                   (got[2] - plain[2]).abs().max().item())
     print(f"K5 vs plain and K1: distances bit-equal and indices equal on {list(cases)}")
+    # the planner cuts M=4500 into short splits; one or two splits make a
+    # block sweep several chunks through its double buffer
+    q, k = cases["long_keys_B2_300x4500"]
+    want = nn_fused_planes_reference(q, k)
+    for split in ((1, 4500), (2, 2272)):
+        words = torch.empty(2 * (300 + 4500), dtype=torch.int64, device=device)
+        dist = torch.empty(2 * (300 + 4500), dtype=torch.float32, device=device)
+        idx = torch.empty(2 * (300 + 4500), dtype=torch.int32, device=device)
+        nn._launch("hpcd_nn_fused_planes", q, k, dist, idx, words, split=split)
+        torch.cuda.synchronize()
+        check(torch.equal(dist, torch.cat([want[0].flatten(), want[2].flatten()])) and
+              torch.equal(idx, torch.cat([want[1].flatten(), want[3].flatten()])),
+              f"K5 with the keys in {split[0]} split(s) of {split[1]} differs from plain")
+    print("K5 vs plain: bit-equal with M=4500 in 1 and 2 splits (chunks double-buffered)")
 
     times = {}
-    for name in ("B64_1024x2048", "B64_2048x2048"):
+    for name in ("B64_1024x2048", "B64_2048x1024", "B64_2048x2048"):
         q, k = cases[name]
 
         def library():  # cdist without the expansion, then min and argmin both ways
@@ -1499,15 +1531,21 @@ def nn_fused_vs_plain(model32, device) -> dict:
             return d.min(dim=2), d.min(dim=1)
 
         b, n, m = q.shape[0], q.shape[1], k.shape[1]
-        times[name] = {
+        t = {
+            "split": nn.nn_fused_split(b, n, m, torch.cuda.get_device_properties(
+                device).multi_processor_count),
             "ms": cuda_ms(lambda: nn_fused_planes(q, k)),
             "k1_twice_ms": cuda_ms(lambda: (nn_one_direction(q, k), nn_one_direction(k, q))),
+            "k3_ms": cuda_ms(lambda: nn_min_fused(q, k)),
             "plain_ms": cuda_ms(lambda: nn_fused_planes_reference(q, k), iters=3),
             "library_ms": cuda_ms(library, iters=1, windows=3, warmup=1),
             # 8 instructions for the distance, a compare and two selects each way
             **pair_bound(q, k, 8 * b * (n + m), 14),
         }
-        print(f"K5 timing {name}: {json.dumps(times[name])}")
+        t["ratio_to_k1_twice"] = t["ms"] / t["k1_twice_ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        times[name] = t
+        print(f"K5 timing {name}: {json.dumps(t)}")
     return {"launches": launches, "max_abs_err": err, "times": times}
 
 
@@ -1579,6 +1617,7 @@ def chamfer_fused_vs_plain(device) -> dict:
             return v, torch.autograd.grad(v, (gts, preds))
 
         t = {"ms": cuda_ms(lambda: chamfer_loss_grad(a, b)),
+             "k3_ms": cuda_ms(lambda: nn_min_fused(a, b)),
              "value_and_grad_ms": cuda_ms(lambda: value_and_grad(chamfer_loss_fused)),
              # phase 7's route: K1 twice (or K5) + the gather/scatter backward (K2)
              "streaming_value_and_grad_ms": cuda_ms(
@@ -1586,6 +1625,8 @@ def chamfer_fused_vs_plain(device) -> dict:
              "plain_ms": cuda_ms(lambda: chamfer_loss_grad_reference(a, b), iters=3),
              "library_ms": None,  # no one PyTorch call gives the loss and both fields
              **pair_bound(a, b, 4 * (TRAIN_BATCH + a.numel() + b.numel()), 14)}
+        t["ratio_to_k3"] = t["ms"] / t["k3_ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
         out["times"][name] = t
         print(f"K9 timing {name}: {json.dumps(t)}")
     out["launches"] = out["cases"]["B64_2048x2048"]["launches"]
@@ -1800,7 +1841,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib._name}")
-    trunk_ptxas(Path(lib._name).parent / _build.LOG_NAME)
+    log = Path(lib._name).parent / _build.LOG_NAME
+    ptxas_check(log, "trunk_pool_kernel", "trunk")
+    ptxas_check(log, "nn_fused_kernel", "fused NN sweep")
 
     config, model = build_model("bfloat16")
     model32 = copy.deepcopy(model)

@@ -1,26 +1,50 @@
-// The single-pass nearest-neighbour kernel with first argmins in both
+// The single-pass nearest-neighbour sweep with first argmins in both
 // directions, shared by nn_fused_planes.cu (K5) and chamfer_loss_grad.cu
-// (K9's first pass), which differ only in what they do with direction 1.
+// (K9), which differ only in what they do with its two word buffers.
 //
-// It is nn_min_fused.cu (K3) with indices:
-//   * blocks, key staging and distances are K3's (nn_common.cuh), so a
-//     distance has the same bits as in K1, K3 and the plain version;
-//   * direction 1: each thread keeps, for its four queries, a running
-//     (min, first key) with a strict < in key order, as nn_one_direction.cu;
-//   * direction 2: for 32 keys in a row each lane takes the (min, first
-//     query) over its four queries, then a butterfly of 31 shuffle pairs
-//     leaves lane l with the warp's pair for key l; at equal distances the
-//     smaller query index is kept;
-//   * the pairs merge into the block's per-key state in shared memory, and
-//     each chunk's state into the cloud's in global memory, with a 64-bit
-//     atomicMin on (float bits << 32) | query index. Squared distances are
-//     >= +0, whose bits order as the floats, so the smallest word is the
-//     smallest distance and, among equal ones, the first query: the same
-//     result in any block order, with no tie broken by timing.
-// Padding keys sit at +inf: a distance to them is +inf, which never passes
-// a strict < against a finite one, and they are never stored. Spare query
-// slots of the last tile repeat query n - 1 with its own index, so they
-// change no minimum and no argmin.
+// What bounds it: the fp32 issue rate, about 14 instructions a (query, key)
+// pair: 8 for the distance (nn_common.cuh: no FMA, so the bits are K1's, K3's
+// and the plain version's), then a compare and two selects in each
+// direction. The work is to keep the SMs issuing them:
+//   * grid (cloud, 1024-query tile, key split): the keys of a cloud are cut
+//     into `splits` runs of `length` (ops/nn.py::nn_fused_split picks them
+//     from the batch, the tiles, M and the SM count, so that the grid fills
+//     every SM to its register limit). B=64 at 1024x2048 is 64 tiles x 8
+//     splits; 128 threads at <= 128 registers put 16 warps on an SM, where a
+//     grid of one block per tile had 4;
+//   * eight queries a thread in registers, keys in shared memory as float4:
+//     one 16-byte broadcast load feeds eight distances. A block that sweeps
+//     more than one chunk of kFusedChunk keys copies the next chunk with
+//     cp.async into the other half of a double buffer while it sweeps the
+//     current one. TMA cannot copy the keys (a row is 12 bytes, under its
+//     16-byte stride granule), and wgmma would need |q|^2 + |k|^2 - 2 q.k,
+//     whose rounding changes distances and hence argmins: the sweep stays
+//     on the fp32 cores;
+//   * direction 1: each thread keeps, for its eight queries, a running
+//     (min, first key) with a strict < in key order;
+//   * direction 2: for 16 keys in a row each lane takes the (min, first
+//     query) over its eight queries; a butterfly of 15 shuffle pairs (8 + 4
+//     + 2 + 1) leaves lane l with its half-warp's pair for key l % 16, and
+//     one more shuffle across the halves gives the warp's. At equal
+//     distances the smaller query index is kept. Eight queries, not four,
+//     spread the butterfly's ~11 instructions a key over twice the pairs
+//     (about 15 instructions a pair in all). What keeps that under 128
+//     registers: 16 keys, not 32, halve the pairs a lane holds, and a pair
+//     carries a slot-and-lane code (slot * 32 + lane, which orders as the
+//     query index inside a warp) in place of the index, rebuilt after the
+//     butterfly, so the eight indices need no registers;
+//   * both directions merge across blocks the same way: a 64-bit atomicMin
+//     on (float bits << 32) | index into a word buffer filled with
+//     kEmptyPair first; (batch, n) words for the queries (one merge per
+//     split), (batch, m) for the keys (through a per-chunk buffer in shared
+//     memory, then one merge per query tile). Squared distances are >= +0,
+//     whose bits order as the floats, so the smallest word is the smallest
+//     distance and, among equal ones, the first index: the same result in
+//     any block order, with no tie broken by timing.
+// Padding keys (a chunk is filled up to a multiple of 16) sit at +inf: a
+// distance to them never passes a strict < against a finite one, and they
+// are never stored. Spare query slots of the last tile repeat query n - 1
+// with its own index, so they change no minimum and no argmin.
 
 #pragma once
 
@@ -32,7 +56,14 @@
 
 namespace hpcd_nn {
 
-// (+inf, index 2^32 - 1): larger than every (distance, query) word
+constexpr int kFusedThreads = 128;                        // four warps
+constexpr int kFusedQpt = 8;                              // queries per thread
+constexpr int kFusedQueries = kFusedThreads * kFusedQpt;  // queries per block (a tile)
+constexpr int kFusedBlocksPerSm = 4;   // 65536 registers / (128 threads x 128)
+constexpr int kFusedChunk = 1024;      // keys a buffer of the double buffer holds
+constexpr int kGroup = 16;             // keys a warp reduces at a time in direction 2
+
+// (+inf, index 2^32 - 1): larger than every (distance, index) word
 constexpr unsigned long long kEmptyPair = 0x7f800000ffffffffULL;
 
 __device__ __forceinline__ unsigned long long pack_pair(const float d, const int i) {
@@ -47,16 +78,51 @@ __device__ __forceinline__ int pair_index(const unsigned long long p) {
   return (int)(unsigned)(p & 0xffffffffULL);
 }
 
-// static: each source that includes this header gets its own copy
-static __global__ void fill_empty_pairs(unsigned long long* __restrict__ a, const long long count) {
+// static: each source that includes this header gets its own copy of each
+// kernel. Sets `count` words to kEmptyPair and `zero_count` floats to 0.
+static __global__ void fill_words(unsigned long long* __restrict__ words, const long long count,
+                                  float* __restrict__ zeros, const long long zero_count) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) a[i] = kEmptyPair;
+  if (i < count) words[i] = kEmptyPair;
+  if (i < zero_count) zeros[i] = 0.f;
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Start copying `count` keys from `kb + 3 * start` into `sk` as float4 (one
+// commit group) and set the padding up to a multiple of kGroup to +inf.
+__device__ __forceinline__ void stage_keys_async(const float* __restrict__ kb, const int start,
+                                                 const int count, float4* sk) {
+  for (int j = threadIdx.x; j < count; j += kFusedThreads) {
+    const float* p = kb + 3 * (size_t)(start + j);
+    float* s = reinterpret_cast<float*>(sk + j);
+    cp_async4(s, p);
+    cp_async4(s + 1, p + 1);
+    cp_async4(s + 2, p + 2);
+  }
+  const int padded = (count + kGroup - 1) & ~(kGroup - 1);
+  for (int j = count + (int)threadIdx.x; j < padded; j += kFusedThreads)
+    sk[j] = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool pair_less(const float d, const int i, const float e,
+                                          const int j) {
+  return d < e || (d == e && i < j);
 }
 
 // One step of the butterfly of nn_min_fused.cu, on (distance, index) pairs:
-// lanes that differ in bit W swap halves and keep the smaller distance, and
-// at equal distances the smaller index. Lanes with bit W set keep the upper
-// half.
+// lanes that differ in bit W swap halves and keep the smaller pair. Lanes
+// with bit W set keep the upper half. A template, so that every index into
+// the arrays is a constant and they stay in registers.
 template <int W>
 __device__ __forceinline__ void butterfly_argmin(float* part, int* pidx, const int lane) {
   const bool upper = lane & W;
@@ -68,99 +134,143 @@ __device__ __forceinline__ void butterfly_argmin(float* part, int* pidx, const i
     const int keep_i = upper ? pidx[i + W] : pidx[i];
     const float other_d = __shfl_xor_sync(0xffffffffu, send_d, W);
     const int other_i = __shfl_xor_sync(0xffffffffu, send_i, W);
-    const bool take = other_d < keep_d || (other_d == keep_d && other_i < keep_i);
+    const bool take = pair_less(other_d, other_i, keep_d, keep_i);
     part[i] = take ? other_d : keep_d;
     pidx[i] = take ? other_i : keep_i;
   }
+  if constexpr (W > 1) butterfly_argmin<W / 2>(part, pidx, lane);
 }
 
-// One block per (cloud, kQueries-query tile); key_pairs (batch, m) must hold
-// kEmptyPair before the launch and ends as each key's (min, first query).
-// Direction 1 ends in registers and goes to `epilogue(b, tile, qx, qy, qz,
-// best, arg)`, called by every thread.
-template <class Epilogue>
-__global__ void __launch_bounds__(kThreads)
+// part / pidx hold a lane's pairs for kGroup keys; afterwards part[0] /
+// pidx[0] of lane l hold the warp's pair for key l % kGroup.
+__device__ __forceinline__ void reduce_keys(float* part, int* pidx, const int lane) {
+  butterfly_argmin<kGroup / 2>(part, pidx, lane);
+#pragma unroll
+  for (int x = kGroup; x < 32; x <<= 1) {
+    const float other_d = __shfl_xor_sync(0xffffffffu, part[0], x);
+    const int other_i = __shfl_xor_sync(0xffffffffu, pidx[0], x);
+    if (pair_less(other_d, other_i, part[0], pidx[0])) {
+      part[0] = other_d;
+      pidx[0] = other_i;
+    }
+  }
+}
+
+// One block per (cloud, tile, split), split fastest. query_words (batch, n)
+// and key_words (batch, m) must hold kEmptyPair before the launch; they end
+// as each query's (min, first key) and each key's (min, first query).
+static __global__ void __launch_bounds__(kFusedThreads, kFusedBlocksPerSm)
 nn_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                unsigned long long* __restrict__ key_pairs, const int n, const int m,
-                const int tiles, const Epilogue epilogue) {
-  __shared__ float4 sk[kKeyChunk];
-  __shared__ unsigned long long skbest[kKeyChunk];
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
+                unsigned long long* __restrict__ query_words,
+                unsigned long long* __restrict__ key_words, const int n, const int m,
+                const int tiles, const int splits, const int length) {
+  __shared__ __align__(16) float4 sk[2][kFusedChunk];
+  __shared__ unsigned long long skbest[kFusedChunk];
+  const int split = (int)(blockIdx.x % (unsigned)splits);
+  const int tile = (int)(blockIdx.x / (unsigned)splits % (unsigned)tiles);
+  const int b = (int)(blockIdx.x / (unsigned)splits / (unsigned)tiles);
   const int lane = threadIdx.x & 31;
+  const int first = split * length;
+  const int last = (int)min((long long)first + length, (long long)m);
   const float* qb = q + 3 * (size_t)b * n;
   const float* kb = k + 3 * (size_t)b * m;
 
-  float qx[kQpt], qy[kQpt], qz[kQpt], best[kQpt];
-  int arg[kQpt], qi[kQpt];
-  load_queries(qb, n, tile, qx, qy, qz);
+  // slot s of thread t is query tile * kFusedQueries + s * kFusedThreads + t,
+  // which warp_base rebuilds from the code s * 32 + lane
+  const int warp_base = tile * kFusedQueries + ((int)threadIdx.x & ~31);
+  float qx[kFusedQpt], qy[kFusedQpt], qz[kFusedQpt], best[kFusedQpt];
+  int arg[kFusedQpt];
 #pragma unroll
-  for (int s = 0; s < kQpt; ++s) {
+  for (int s = 0; s < kFusedQpt; ++s) {
+    const int i = min(warp_base + s * kFusedThreads + lane, n - 1);
+    qx[s] = qb[3 * (size_t)i];
+    qy[s] = qb[3 * (size_t)i + 1];
+    qz[s] = qb[3 * (size_t)i + 2];
     best[s] = INFINITY;
-    arg[s] = 0;
-    qi[s] = min(tile * kQueries + s * kThreads + (int)threadIdx.x, n - 1);
+    arg[s] = first;
   }
+  for (int j = threadIdx.x; j < kFusedChunk; j += kFusedThreads) skbest[j] = kEmptyPair;
+  stage_keys_async(kb, first, min(kFusedChunk, last - first), sk[0]);
 
-  for (int start = 0; start < m; start += kKeyChunk) {
-    const int count = min(kKeyChunk, m - start);
-    const int padded = (count + 31) & ~31;
-    __syncthreads();  // the previous chunk's keys and pairs are consumed
-    stage_keys(kb, start, count, sk);
-    for (int j = count + (int)threadIdx.x; j < padded; j += blockDim.x)
-      sk[j] = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
-    for (int j = threadIdx.x; j < count; j += blockDim.x) skbest[j] = kEmptyPair;
-    __syncthreads();
-    for (int c0 = 0; c0 < padded; c0 += 32) {
-      float part[32];
-      int pidx[32];
+  int buf = 0;
+  for (int start = first; start < last; start += kFusedChunk, buf ^= 1) {
+    const int count = min(kFusedChunk, last - start);
+    if (start + kFusedChunk < last) {
+      // sk[buf ^ 1] was last read before the __syncthreads that ended the
+      // previous chunk
+      stage_keys_async(kb, start + kFusedChunk, min(kFusedChunk, last - start - kFusedChunk),
+                       sk[buf ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this chunk's keys, padding and empty skbest are visible
+    const float4* keys = sk[buf];
+    const int padded = (count + kGroup - 1) & ~(kGroup - 1);
+    for (int c0 = 0; c0 < padded; c0 += kGroup) {
+      float part[kGroup];
+      int pidx[kGroup];
 #pragma unroll
-      for (int kk = 0; kk < 32; ++kk) {
-        const float4 key = sk[c0 + kk];
-        float kmin = 0.f;
-        int kidx = 0;
+      for (int kk = 0; kk < kGroup; ++kk) {
+        const float4 key = keys[c0 + kk];
+        const int j = start + c0 + kk;
 #pragma unroll
-        for (int s = 0; s < kQpt; ++s) {
+        for (int s = 0; s < kFusedQpt; ++s) {
           const float d = sqdist(key, qx[s], qy[s], qz[s]);
           if (d < best[s]) {
             best[s] = d;
-            arg[s] = start + c0 + kk;
+            arg[s] = j;
           }
-          if (s == 0 || d < kmin) {
-            kmin = d;
-            kidx = qi[s];
+          if (s == 0 || d < part[kk]) {
+            part[kk] = d;
+            pidx[kk] = s;
           }
         }
-        part[kk] = kmin;
-        pidx[kk] = kidx;
+        pidx[kk] = pidx[kk] * 32 + lane;
       }
-      // as in nn_min_fused.cu, part[0] / pidx[0] end as the warp's pair for
-      // key `lane` of the 32
-      butterfly_argmin<16>(part, pidx, lane);
-      butterfly_argmin<8>(part, pidx, lane);
-      butterfly_argmin<4>(part, pidx, lane);
-      butterfly_argmin<2>(part, pidx, lane);
-      butterfly_argmin<1>(part, pidx, lane);
-      if (c0 + lane < count) atomicMin(&skbest[c0 + lane], pack_pair(part[0], pidx[0]));
+      reduce_keys(part, pidx, lane);
+      if (lane < kGroup && c0 + lane < count) {
+        // a spare slot of the last tile stands for query n - 1
+        const int i = min(warp_base + (pidx[0] >> 5) * kFusedThreads + (pidx[0] & 31), n - 1);
+        atomicMin(&skbest[c0 + lane], pack_pair(part[0], i));
+      }
     }
-    __syncthreads();
-    unsigned long long* out = key_pairs + (size_t)b * m + start;
-    for (int j = threadIdx.x; j < count; j += blockDim.x) atomicMin(&out[j], skbest[j]);
+    __syncthreads();  // every warp has swept the chunk and merged its pairs
+    unsigned long long* out = key_words + (size_t)b * m + start;
+    for (int j = threadIdx.x; j < count; j += kFusedThreads) {
+      atomicMin(&out[j], skbest[j]);
+      skbest[j] = kEmptyPair;  // the thread that reads an entry resets it
+    }
   }
-  epilogue(b, tile, qx, qy, qz, best, arg);
+
+#pragma unroll
+  for (int s = 0; s < kFusedQpt; ++s) {
+    const int i = warp_base + s * kFusedThreads + lane;
+    if (i < n) atomicMin(&query_words[(size_t)b * n + i], pack_pair(best[s], arg[s]));
+  }
 }
 
-// Launch fill_empty_pairs then nn_fused_kernel; returns cudaGetLastError().
-template <class Epilogue>
-cudaError_t launch_nn_fused(const float* q, const float* k, unsigned long long* key_pairs,
-                            const int batch, const int n, const int m, const Epilogue& epilogue,
-                            cudaStream_t s) {
-  const int tiles = (n + kQueries - 1) / kQueries;
-  if ((long long)batch * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const long long count = (long long)batch * m;
-  fill_empty_pairs<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(key_pairs, count);
+// Fill `words` (batch * (n + m): the queries' words, then the keys') and
+// zero `zeros`, then launch the sweep; returns cudaErrorInvalidValue for a
+// split that does not cover the m keys with `splits` non-empty runs of
+// `length`, else cudaGetLastError().
+static cudaError_t launch_nn_fused(const float* q, const float* k, unsigned long long* words,
+                                   const int batch, const int n, const int m, const int splits,
+                                   const int length, float* zeros, const long long zero_count,
+                                   cudaStream_t s) {
+  if (splits < 1 || length < 1 || (long long)splits * length < m ||
+      (long long)(splits - 1) * length >= m)
+    return cudaErrorInvalidValue;
+  const int tiles = (n + kFusedQueries - 1) / kFusedQueries;
+  const long long blocks = (long long)batch * tiles * splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long count = (long long)batch * (n + m);
+  const long long fill = count > zero_count ? count : zero_count;
+  fill_words<<<(unsigned)((fill + 255) / 256), 256, 0, s>>>(words, count, zeros, zero_count);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nn_fused_kernel<<<batch * tiles, kThreads, 0, s>>>(q, k, key_pairs, n, m, tiles, epilogue);
+  nn_fused_kernel<<<(unsigned)blocks, kFusedThreads, 0, s>>>(
+      q, k, words, words + (size_t)batch * n, n, m, tiles, splits, length);
   return cudaGetLastError();
 }
 

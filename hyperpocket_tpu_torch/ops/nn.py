@@ -11,6 +11,7 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
   to the lowest query index.
 * ``chamfer_loss_grad`` (K9, ``csrc/chamfer_loss_grad.cu``): the per-sample
   Chamfer sum and both gradient fields from one host call.
+* ``nn_fused_split``: how K5 and K9 cut each cloud's keys across blocks.
 * ``nn_forward``: the grad forward of the NN ops, the counterpart of
   ``_nn_forward_pallas``: K5 when the clouds differ in size, K1 twice when
   they are equal (the JAX package's policy). ``nn_distance_pallas`` is an
@@ -127,21 +128,57 @@ def _kernel_args(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
 
 
 @functools.cache
-def _c_function(symbol: str, n_pointers: int):
+def _c_function(symbol: str, n_pointers: int, n_ints: int):
     fn = getattr(library(), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(symbol: str, q, k, *outs) -> None:
+def _launch(symbol: str, q, k, *outs, split: tuple[int, ...] = ()) -> None:
+    """Call ``symbol(q, k, *outs, B, N, M, *split, stream)``; raise on an error."""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _c_function(symbol, 2 + len(outs))(
+        rc = _c_function(symbol, 2 + len(outs), 3 + len(split))(
             q.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs),
-            q.shape[0], q.shape[1], k.shape[1], stream)
+            q.shape[0], q.shape[1], k.shape[1], *split, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} kernel launch failed with CUDA error {rc}")
+
+
+# csrc/nn_fused.cuh's sweep (K5, K9): blocks of 128 threads with 8 queries
+# each, 4 blocks resident on an SM at its register limit
+FUSED_QUERIES = 1024
+FUSED_BLOCKS_PER_SM = 4
+FUSED_MIN_KEYS = 128  # the fewest keys a split is cut to
+FUSED_KEY_ALIGN = 32
+
+
+def nn_fused_split(batch: int, n: int, m: int, sms: int) -> tuple[int, int]:
+    """(splits, length): K5/K9's sweep cuts each cloud's m keys into
+    ``splits`` runs of ``length`` keys, the last one possibly shorter and
+    none empty.
+
+    The grid is (cloud, 1024-query tile, split). ``splits`` is the largest
+    count that keeps the grid within one wave of ``sms`` SMs at
+    ``FUSED_BLOCKS_PER_SM`` blocks each (at least 1, and no run but the last
+    under ``FUSED_MIN_KEYS`` keys); ``length`` is rounded up to a multiple
+    of 32.
+    B=64 at 1024x2048 gives (8, 256): 512 blocks for 528 places.
+    """
+    if min(batch, n, m, sms) < 1:
+        raise ValueError(f"nn_fused_split takes positive counts, got batch={batch}, n={n}, "
+                         f"m={m}, sms={sms}")
+    tiles = -(-n // FUSED_QUERIES)
+    splits = max(1, min(sms * FUSED_BLOCKS_PER_SM // (batch * tiles), m // FUSED_MIN_KEYS))
+    length = -(-m // splits)
+    length = -(-length // FUSED_KEY_ALIGN) * FUSED_KEY_ALIGN
+    return -(-m // length), length
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def nn_one_direction(q: torch.Tensor, k: torch.Tensor):
@@ -183,14 +220,15 @@ def nn_fused_planes(q: torch.Tensor, k: torch.Tensor):
         return nn_fused_planes_reference(q, k)
     _kernel_args("nn_fused_planes", q, k)
     b, n, m = q.shape[0], q.shape[1], k.shape[1]
-    dist1 = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    idx1 = torch.empty((b, n), dtype=torch.int32, device=q.device)
-    dist2 = torch.empty((b, m), dtype=torch.float32, device=q.device)
-    idx2 = torch.empty((b, m), dtype=torch.int32, device=q.device)
-    pairs = torch.empty((b, m), dtype=torch.int64, device=q.device)
-    _launch("hpcd_nn_fused_planes", q, k, dist1, idx1, dist2, idx2, pairs)
+    split = nn_fused_split(b, n, m, _sm_count(q.device))
+    # both directions in one buffer each: (b, n) for the queries, then (b, m)
+    dist = torch.empty(b * (n + m), dtype=torch.float32, device=q.device)
+    idx = torch.empty(b * (n + m), dtype=torch.int32, device=q.device)
+    words = torch.empty(b * (n + m), dtype=torch.int64, device=q.device)
+    _launch("hpcd_nn_fused_planes", q, k, dist, idx, words, split=split)
     nn_fused_planes.launches += 1
-    return dist1, idx1, dist2, idx2
+    return (dist[:b * n].view(b, n), idx[:b * n].view(b, n),
+            dist[b * n:].view(b, m), idx[b * n:].view(b, m))
 
 
 nn_fused_planes.launches = 0
@@ -210,12 +248,15 @@ def chamfer_loss_grad(gts: torch.Tensor, preds: torch.Tensor):
     b = gts.shape[0]
     if b > 65535:
         raise ValueError(f"chamfer_loss_grad takes at most 65535 clouds, got {b}")
-    loss = torch.empty((b,), dtype=torch.float32, device=gts.device)
-    ga, gb = torch.empty_like(gts), torch.empty_like(preds)
-    pairs = torch.empty((b, preds.shape[1]), dtype=torch.int64, device=gts.device)
-    _launch("hpcd_chamfer_loss_grad", gts, preds, loss, ga, gb, pairs)
+    n, m = gts.shape[1], preds.shape[1]
+    split = nn_fused_split(b, n, m, _sm_count(gts.device))
+    ga = torch.empty_like(gts)
+    # grad_preds and the loss in one buffer, which the kernel's fill zeroes
+    gb_loss = torch.empty(b * (3 * m + 1), dtype=torch.float32, device=gts.device)
+    words = torch.empty(b * (n + m), dtype=torch.int64, device=gts.device)
+    _launch("hpcd_chamfer_loss_grad", gts, preds, ga, gb_loss, words, split=split)
     chamfer_loss_grad.launches += 1
-    return loss, ga, gb
+    return gb_loss[3 * b * m:], ga, gb_loss[:3 * b * m].view(b, m, 3)
 
 
 chamfer_loss_grad.launches = 0

@@ -22,6 +22,10 @@
 #   k8_lane_ties   K8's keys inside a tile prefer the later of equal rows
 #   k8_tile_ties   K8 merges tiles' equal maxima to the later tile
 #   k5_pair_ties   K5's butterfly keeps the later query of equal distances
+#   k5_dir1_store  the sweep merges direction 1 across key splits with a
+#                  plain store, not the 64-bit atomicMin
+#   k5_split_end   each key split stops one key short of its end (the last
+#                  one only when it is full)
 #   k9_dir2_sign   K9 scatters direction 2 into grad_a with the wrong sign
 #   k10_bias       K10 drops the hidden layers' bias of every second point
 cd "$(dirname "$0")/.."
@@ -49,7 +53,8 @@ phase = {"k5": lambda: c.nn_fused_vs_plain(model32, d),
          "k10": lambda: c.decode_vs_plain(model, model32, d)}[sys.argv[1]]
 try:
     phase(); print("MUTANT SURVIVED the smoke phase")
-except c.SmokeFailure as e: print("MUTANT CAUGHT by the smoke phase:", e)'
+except Exception as e:  # SmokeFailure, or a CUDA error (an index left at -1 faults a gather)
+    print("MUTANT CAUGHT by the smoke phase:", type(e).__name__, str(e).strip().splitlines()[0])'
 
 mutant () {  # name, source file under csrc/, python check, pytest -k, sed expressions...
   name=$1; file=$2; check=$3; tests=$4; shift 4
@@ -83,7 +88,11 @@ mutant k8_tile_ties trunk_pool.cu "$TRUNK_PY" argmax \
   's/(0xFFFFFFFFu - (unsigned)(row0 + row_key_row(m)))/((unsigned)(row0 + row_key_row(m)))/' \
   's/idx\[i\] = (int)(0xFFFFFFFFu - (unsigned)(k \& 0xFFFFFFFFull));/idx[i] = (int)(k \& 0xFFFFFFFFull);/'
 mutant k5_pair_ties nn_fused.cuh "$PHASE_PY" fused_planes \
-  's/(other_d == keep_d \&\& other_i < keep_i)/(other_d == keep_d \&\& other_i > keep_i)/'
+  's/return d < e || (d == e \&\& i < j);/return d < e || (d == e \&\& i > j);/'
+mutant k5_dir1_store nn_fused.cuh "$PHASE_PY" "fused_planes or k5_and_k9" \
+  's/if (i < n) atomicMin(\&query_words\[(size_t)b \* n + i\], pack_pair(best\[s\], arg\[s\]));/if (i < n) query_words[(size_t)b * n + i] = pack_pair(best[s], arg[s]);/'
+mutant k5_split_end nn_fused.cuh "$PHASE_PY" "fused_planes or k5_and_k9" \
+  's/min((long long)first + length, (long long)m)/min((long long)first + length - 1, (long long)m)/'
 mutant k9_dir2_sign chamfer_loss_grad.cu "$PHASE_PY" chamfer_loss \
   's/atomicAdd(g + c, -diff);/atomicAdd(g + c, diff);/'
 mutant k10_bias decode_batch.cu "$PHASE_PY" decode \

@@ -352,9 +352,12 @@ def test_chamfer_loss_auto_launches_kernels_at_any_count(cuda, n, m):
 
 # K5 (ops/nn.py::nn_fused_planes): the same distance arithmetic as K1 and the
 # plain version, so distances are bit-equal and indices equal, against both
-# the plain version and K1 run once each way.
+# the plain version and K1 run once each way. The sweep cuts the keys into
+# splits (ops/nn.py::nn_fused_split): the dup_split, ragged_split and
+# one_tile cases straddle them.
 
-K5_CASES = NN_CASES + ["B64_1024x2048", "B64_2048x1024", "dup_both", "dup_adjacent"]
+K5_CASES = NN_CASES + ["B64_1024x2048", "B64_2048x1024", "dup_both", "dup_adjacent",
+                       "dup_split", "dup_split_even", "ragged_split", "one_tile"]
 
 
 def _k5_case(case: str):
@@ -364,6 +367,13 @@ def _k5_case(case: str):
     if case == "dup_adjacent":  # copies in neighbouring lanes: ties through the butterfly
         q, k = _points(2, 128, 29), _points(2, 96, 30)
         return q.repeat_interleave(2, dim=1), k.repeat_interleave(2, dim=1)
+    if case.startswith("dup_split"):  # key j again at j + ceil(M / 2), in another split
+        half = _points(4, 1001 if case == "dup_split" else 1000, 31)
+        return _points(4, 600, 32), torch.cat([half, half[:, :1000]], dim=1).contiguous()
+    if case == "ragged_split":  # M a multiple of neither the split count nor 32
+        return _points(8, 700, 33), _points(8, 1000, 34)
+    if case == "one_tile":  # one query tile, many splits
+        return _points(1, 64, 35), _points(1, 4500, 36)
     if case in ("B64_1024x2048", "B64_2048x1024"):
         n, m = (int(v) for v in case[4:].split("x"))
         return _points(64, n, 23), _points(64, m, 24)
@@ -387,8 +397,55 @@ def test_nn_fused_planes_kernel_matches_reference_and_k1(cuda, case):
         assert int(got[1].max()) < 96 and int(got[3].max()) < 128
     if case == "dup_adjacent":  # the first of each pair of copies
         assert not bool((got[1] % 2).any()) and not bool((got[3] % 2).any())
+    if case.startswith("dup_split"):
+        from hyperpocket_tpu_torch.ops.nn import _sm_count, nn_fused_split
+
+        splits, length = nn_fused_split(*q.shape[:2], k.shape[1], _sm_count(q.device))
+        assert splits > 1 and length < 1000  # the two copies lie in different splits
+        assert int(got[1].max()) < k.shape[1] - 1000
     again = nn_fused_planes(q, k)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def _fused_outputs(symbol: str, q, k):
+    b, n, m = q.shape[0], q.shape[1], k.shape[1]
+    words = torch.empty(b * (n + m), dtype=torch.int64, device=q.device)
+    if symbol == "hpcd_nn_fused_planes":
+        return (torch.empty(b * (n + m), device=q.device),
+                torch.empty(b * (n + m), dtype=torch.int32, device=q.device), words)
+    return torch.empty_like(q), torch.empty(b * (3 * m + 1), device=q.device), words
+
+
+@pytest.mark.parametrize("split", [(1, 4500), (2, 2272), (3, 1500), (36, 128), (141, 32)])
+def test_k5_and_k9_give_the_planner_result_at_any_split(cuda, split):
+    """One split of 4500 keys is five chunks through the double buffer; every
+    valid split gives K5's bits and K9's values to their tolerance."""
+    from hyperpocket_tpu_torch.ops import nn
+
+    q, k = _nn_case("long_keys")
+    out = _fused_outputs("hpcd_nn_fused_planes", q, k)
+    nn._launch("hpcd_nn_fused_planes", q, k, *out, split=split)
+    torch.cuda.synchronize()
+    want = nn.nn_fused_planes(q, k)
+    assert torch.equal(out[0], torch.cat([want[0].flatten(), want[2].flatten()]))
+    assert torch.equal(out[1], torch.cat([want[1].flatten(), want[3].flatten()]))
+    ga, gb_loss, words = _fused_outputs("hpcd_chamfer_loss_grad", q, k)
+    nn._launch("hpcd_chamfer_loss_grad", q, k, ga, gb_loss, words, split=split)
+    torch.cuda.synchronize()
+    want_loss, want_ga, want_gb = nn.chamfer_loss_grad_reference(q, k)
+    torch.testing.assert_close(gb_loss[-2:], want_loss, rtol=1e-5, atol=0)
+    _close_to_scale(ga, want_ga)
+    _close_to_scale(gb_loss[:-2].view_as(want_gb), want_gb)
+
+
+@pytest.mark.parametrize("symbol", ["hpcd_nn_fused_planes", "hpcd_chamfer_loss_grad"])
+@pytest.mark.parametrize("split", [(1, 63), (2, 31), (3, 32), (0, 64), (1, 0)])
+def test_k5_and_k9_refuse_a_split_that_does_not_cover_the_keys(cuda, symbol, split):
+    from hyperpocket_tpu_torch.ops import nn
+
+    q, k = _points(2, 100, 37), _points(2, 64, 38)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        nn._launch(symbol, q, k, *_fused_outputs(symbol, q, k), split=split)
 
 
 def test_nn_distance_pallas_backward_through_k5(cuda):

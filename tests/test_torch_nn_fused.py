@@ -156,3 +156,43 @@ def test_chamfer_loss_fused_value_and_grads_match_jax(monkeypatch):
         value = nn.chamfer_loss_fused(g, p)
     assert calls == ["K9", "K3"]
     assert abs(value.item() - want) <= FP32_TOL * abs(want)
+
+
+# K5/K9's key splits (ops/nn.py::nn_fused_split): the kernels' grid is
+# (cloud, 1024-query tile, split), and the C side refuses a split that does
+# not cover the keys with non-empty runs.
+
+SPLIT_SHAPES = [(64, 1024, 2048, 132), (64, 2048, 1024, 132), (64, 2048, 2048, 132),
+                (1, 64, 4500, 132), (2, 300, 4500, 132), (3, 200, 136, 132),
+                (4, 600, 2001, 132), (8, 700, 1000, 132), (1, 1, 1, 1), (60, 2048, 2048, 132),
+                (512, 1024, 1024, 132), (64, 1024, 2048, 114)]
+
+
+@pytest.mark.parametrize("batch,n,m,sms", SPLIT_SHAPES)
+def test_nn_fused_split_covers_every_key_once_in_order(batch, n, m, sms):
+    splits, length = nn.nn_fused_split(batch, n, m, sms)
+    assert splits >= 1 and length >= 1 and length % nn.FUSED_KEY_ALIGN == 0
+    runs = [range(s * length, min((s + 1) * length, m)) for s in range(splits)]
+    assert all(len(r) > 0 for r in runs)  # no split is empty
+    assert [j for r in runs for j in r] == list(range(m))  # each key once, in order
+    blocks = batch * -(-n // nn.FUSED_QUERIES) * splits
+    # one wave at most, unless the clouds' tiles alone fill it
+    assert splits == 1 or blocks <= sms * nn.FUSED_BLOCKS_PER_SM
+    # no run is cut below the floor, unless the whole cloud is shorter
+    assert length >= min(m, nn.FUSED_MIN_KEYS)
+
+
+@pytest.mark.parametrize("shape,want", [((64, 1024, 2048), (8, 256)), ((64, 2048, 1024), (4, 256)),
+                                        ((64, 2048, 2048), (4, 512)),
+                                        ((1, 64, 4500), (29, 160)), ((3, 200, 136), (1, 160))])
+def test_nn_fused_split_at_the_smoke_shapes(shape, want):
+    """The H100's 132 SMs: B=64 at 1024x2048 is 64 tiles x 8 splits, 512
+    blocks for its 528 places; at N=2048, 128 tiles x 4."""
+    assert nn.nn_fused_split(*shape, 132) == want
+
+
+@pytest.mark.parametrize("args", [(0, 64, 64, 132), (2, 0, 64, 132), (2, 64, 0, 132),
+                                  (2, 64, 64, 0), (-1, 64, 64, 132)])
+def test_nn_fused_split_refuses_empty_counts(args):
+    with pytest.raises(ValueError, match="positive counts"):
+        nn.nn_fused_split(*args)
