@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, experiments and training-CLI paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, artifact, training, experiments and CLI paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
@@ -138,12 +138,35 @@ Phases, each fatal on any error:
    elementwise within 2e-5. Timed beside the ``bmm`` chain and the plain
    version.
 
+19. export: the served chair model exported on the card
+   (``serving.export_completion``) in bf16 and fp32 at B=64 and B=256,
+   written to a file and loaded back (``load_completion``): at B=64 the
+   artifact's completion within 2e-2 (bf16, K4's bound) or 1e-5 (fp32) of
+   the output's scale of ``make_serving_fn``'s for the same seed and noise,
+   equal seeds equal, another seed another; the bf16 graph holds the op
+   ``hyperpocket.trunk_pooled`` (fp32 does not), the export launches no K4
+   and each bf16 artifact call one. The artifact and ``make_serving_fn``
+   timed in clouds/s at B=64 and B=256 (nothing is claimed for them).
+20. serving CLI: on the bf16 chair checkpoint and phase 14's 3D-EPN corpus,
+   ``serving.main`` runs ``export`` (sidecar keys), ``infer --artifact``
+   (6 PLYs of 2048 finite points, K4 once), ``fit-prior`` (a finite prior
+   of the noise size) and ``infer --latent-prior`` (6 PLYs); a prior of
+   another dim is refused before any completion.
+21. HyperRec: ``settings/config_completion.json``'s model at full width,
+   fp32 with TF32 off, B=66 partial and gt clouds of 2048 points: the first
+   step's gradients through the kernels against the plain Chamfer's
+   (relative L2 <= 1e-3, K1 twice), then 3 train steps (K1 twice a step, no
+   K3, no K4) and a val step at B=10 (K3 once), ms per step. Where ``h5py``
+   is installed, a synthetic Completion3D ``.list``/``.h5`` tree is read
+   through ``get_datasets``; where it is not, one line says so.
+   Phases 19-21 print their wall time.
+
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
-B=256 and B=64, one fp32 and one bf16 train step at B=64 (the bf16 one also
-with K8 and with K11's fused head step) and one 512-pair
-CD + EMD dispatch of ``evaluate_generativity`` at N=M=1024, the wall time
-per call and the device time per call by kernel (``torch.profiler``) to
-PATH as JSON.
+B=256 and B=64 (and the bf16 artifact of phase 19 at both), one fp32 and
+one bf16 train step at B=64 (the bf16 one also with K8 and with K11's
+fused head step) and one 512-pair CD + EMD dispatch of
+``evaluate_generativity`` at N=M=1024, the wall time per call and the
+device time per call by kernel (``torch.profiler``) to PATH as JSON.
 
 The line before the last is a JSON object with, for each kernel, its
 launches on its path, its error against its plain version, its time, the
@@ -158,6 +181,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import io
 import json
 import os
 import statistics
@@ -172,9 +196,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "settings" / "config_3depn_chair.json"
+COMPLETION_CONFIG = ROOT / "settings" / "config_completion.json"
 SEED = 1856
 KERNEL_ATOL = 2e-2  # tests/test_pallas_encoder.py: bf16 per-layer rounding
 REL_L2_TOL = 0.1
+ARTIFACT_FP32_TOL = 1e-5  # artifact vs make_serving_fn, of the output's scale
 NN_ATOL = 1e-6  # K1/K3 vs plain: the same arithmetic, the same bits
 CHAMFER_RTOL = 1e-5  # the fp32 parity budget
 CHAMFER_GRAD_ATOL = 5e-3  # tests/test_pallas_nn.py: argmin near-ties
@@ -320,13 +346,14 @@ def ptxas_check(log: Path, kernel: str, what: str) -> list:
     return report
 
 
-def build_model(compute_dtype: str):
-    """The chair config at full width; weights and biases drawn from SEED."""
+def build_model(compute_dtype: str, config_path: Path = CONFIG, seed: int = SEED):
+    """A config's model at full width (the chair's by default); weights and
+    biases drawn from ``seed``."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
 
-    config = json.loads(CONFIG.read_text())
+    config = json.loads(config_path.read_text())
     config["full_model"]["compute_dtype"] = compute_dtype
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(seed)
     model = FullModel.from_config(config["full_model"], gen)
     # initialisation zeroes most biases; trained weights have distinct ones per
     # channel, and only those show a bias read from the wrong channel
@@ -847,7 +874,9 @@ def first_step_grads(model, params, batch, balls, loss_fn) -> torch.Tensor:
     rec, mu, sigma = model.apply(batch["existing"], batch["missing"], None, 1.0,
                                  num_output_points=N_OUT, training=True,
                                  vae_eps=batch["vae_eps"], ball_points=balls)
-    loss = loss_fn(batch["gt"], rec) + kld_loss(mu, sigma, rec.shape[0])
+    loss = loss_fn(batch["gt"], rec)
+    if mu is not None:  # HyperRec trains without the KLD
+        loss = loss + kld_loss(mu, sigma, rec.shape[0])
     loss.backward()
     grads = torch.cat([p.grad.flatten() for p in params if p.grad is not None])
     model.zero_grad(set_to_none=True)
@@ -1728,6 +1757,285 @@ def decode_vs_plain(model, model32, device) -> dict:
     return res
 
 
+def _graph_has_trunk_op(data: bytes) -> bool:
+    targets = {str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes}
+    return "hyperpocket.trunk_pooled.default" in targets
+
+
+def drive_export(model, model32, device, tmp: Path) -> dict:
+    """Phase 19: the served chair model exported on the card in bf16 and fp32,
+    saved, loaded back and held to ``make_serving_fn``; both timed at B=64
+    and B=256."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    out = {}
+    for name, m, tol in (("bf16", model, KERNEL_ATOL), ("fp32", model32, ARTIFACT_FP32_TOL)):
+        res = {}
+        for batch in (SERVE_BATCH, BENCH_BATCH):
+            existing = torch.randn((batch, N_EXISTING, 3), generator=gen, device=device) * 0.3
+            noise = torch.randn((batch, model.get_noise_size()), generator=gen,
+                                device=device) * 0.13
+            trunk_pooled.launches = 0
+            t0 = time.perf_counter()
+            data = serving.export_completion(m, batch=batch, n_existing=N_EXISTING,
+                                             num_output_points=N_OUT, device=device)
+            export_s = time.perf_counter() - t0
+            path = tmp / f"{name}_B{batch}{serving.ARTIFACT_SUFFIX}"
+            path.write_bytes(data)
+            t0 = time.perf_counter()
+            f = serving.load_completion(path.read_bytes())
+            load_s = time.perf_counter() - t0
+            check(trunk_pooled.launches == 0, f"{name}: the export launched K4")
+            direct = serving.make_serving_fn(m, num_output_points=N_OUT, device=device)
+            row = {"export_s": export_s, "load_s": load_s, "bytes": len(data)}
+            if batch == SERVE_BATCH:
+                has_op = _graph_has_trunk_op(data)
+                check(has_op == (name == "bf16"),
+                      f"{name}: hyperpocket.trunk_pooled in the exported graph: {has_op}")
+                want = direct(existing, noise, 31)
+                trunk_pooled.launches = 0  # the artifact's path: three requests
+                got = [f(existing, noise, seed) for seed in (31, 31, 32)]
+                torch.cuda.synchronize()
+                launches = trunk_pooled.launches
+                check(launches == (3 if name == "bf16" else 0),
+                      f"{name}: 3 artifact calls launched K4 {launches} times")
+                check(got[0].shape == (batch, N_OUT, 3) and got[0].dtype == torch.float32
+                      and bool(torch.isfinite(got[0]).all()), f"{name}: artifact output")
+                check(torch.equal(got[0], got[1]) and not torch.equal(got[0], got[2]),
+                      f"{name}: the artifact's seeds")
+                err = ((got[0] - want).abs().max() / want.abs().max()).item()
+                print(f"export {name}: artifact vs make_serving_fn, max |diff| / max |out| "
+                      f"{err!r} (limit {tol}); graph holds hyperpocket.trunk_pooled: {has_op}; "
+                      f"K4 launches in 3 artifact calls: {launches}")
+                check(err <= tol, f"{name}: artifact vs make_serving_fn {err} > {tol}")
+                row.update(max_rel_err=err, launches=launches, has_trunk_op=has_op)
+            for tag, fn in (("artifact", f), ("serving_fn", direct)):
+                rate = clouds_per_s(lambda s, fn=fn: fn(existing, noise, s), batch)
+                row[f"{tag}_clouds_per_s"] = rate["clouds_per_s"]
+                row[f"{tag}_window_clouds_per_s"] = rate["window_clouds_per_s"]
+            res[f"B{batch}"] = row
+            path.unlink()
+            del f, direct, data
+            torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def drive_serving_cli(model, device, tmp: Path) -> dict:
+    """Phase 20: ``export``, ``infer --artifact``, ``fit-prior`` and
+    ``infer --latent-prior`` through ``serving.main`` on the bf16 chair
+    checkpoint and the 3D-EPN corpus of phase 14."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.data.plyio import load_ply, save_ply
+    from hyperpocket_tpu_torch.eval.latent_stats import (
+        LatentGaussian,
+        load_latent_gaussian,
+        save_latent_gaussian,
+    )
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+
+    data = tmp / "train_data"
+    write_train_corpus(data)
+    config = json.loads(CONFIG.read_text())
+    config["full_model"]["compute_dtype"] = "bfloat16"
+    config["dataset"]["path"] = str(data)
+    cfg_path = write_checkpoint(config, model, tmp)
+    rng = np.random.default_rng(SEED + 21)
+    plys = []
+    for i, n in enumerate((3000, 1500, 2500)):
+        p = tmp / f"scan{i}.ply"
+        save_ply(p, rng.normal(size=(n, 3)).astype(np.float32) * 0.2 + np.float32(i))
+        plys.append(str(p))
+    art = str(tmp / f"chair{serving.ARTIFACT_SUFFIX}")
+    prior = str(tmp / "prior.npz")
+    zdim = model.get_noise_size()
+    out = {}
+
+    def run(name, argv, want_launches):
+        trunk_pooled.launches = 0
+        t0 = time.perf_counter()
+        rc = serving.main(argv)
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "launches": trunk_pooled.launches}
+        check(rc == 0, f"serving {name} exited {rc}")
+        check(trunk_pooled.launches == want_launches,
+              f"serving {name}: K4 launched {trunk_pooled.launches} times, not {want_launches}")
+
+    def completions(out_dir: Path) -> int:
+        written = sorted(out_dir.glob("*.ply"))
+        for p in written:
+            pts = load_ply(p)
+            check(pts.shape == (N_OUT, 3) and bool(np.isfinite(pts).all()),
+                  f"{p.name}: {pts.shape}")
+        return len(written)
+
+    run("export", ["export", "-c", str(cfg_path), "--out", art, "--batch", str(SERVE_BATCH)], 0)
+    meta = json.loads(Path(art + ".json").read_text())
+    check(meta["platform"] == "cuda" and meta["batch"] == SERVE_BATCH
+          and meta["noise_size"] == zdim and meta["compute_dtype"] == "bfloat16",
+          f"export sidecar {meta}")
+    run("infer_artifact", ["infer", "--artifact", art, "--inputs", *plys, "--out-dir",
+                           str(tmp / "out"), "--samples", "2", "--noise-std", "0.13"], 1)
+    out["infer_artifact"]["plys"] = completions(tmp / "out")
+    check(out["infer_artifact"]["plys"] == 6, f"infer wrote {out['infer_artifact']['plys']}")
+    run("fit_prior", ["fit-prior", "-c", str(cfg_path), "--out", prior, "--max-items", "128",
+                      "--batch-size", str(SERVE_BATCH)], 0)
+    lg = load_latent_gaussian(prior)
+    check(lg.dim == zdim and bool(np.isfinite(lg.mean).all())
+          and bool(np.isfinite(lg.scale_tril).all()), f"prior of dim {lg.dim}")
+    run("infer_latent_prior", ["infer", "--artifact", art, "--inputs", *plys, "--out-dir",
+                               str(tmp / "prior_out"), "--samples", "2", "--latent-prior",
+                               prior], 1)
+    out["infer_latent_prior"]["plys"] = completions(tmp / "prior_out")
+    check(out["infer_latent_prior"]["plys"] == 6, "infer --latent-prior wrote no 6 PLYs")
+    bad = str(tmp / "bad_prior.npz")
+    save_latent_gaussian(LatentGaussian(np.zeros(zdim + 1, np.float32),
+                                        np.eye(zdim + 1, dtype=np.float32)), bad)
+    try:
+        serving.main(["infer", "--artifact", art, "--inputs", plys[0], "--out-dir",
+                      str(tmp / "bad"), "--latent-prior", bad])
+        refused = False
+    except SystemExit as e:
+        refused = "noise_size" in str(e)
+    check(refused and not (tmp / "bad").exists(), "a prior of another dim was not refused")
+    out["prior_dim"] = lg.dim
+    out["artifact_bytes"] = meta["bytes"]
+    return out
+
+
+def _write_completion3d(root: Path, n_models: int) -> None:
+    """A Completion3D tree of chairs, 2048-point partial and gt clouds as h5."""
+    import h5py
+
+    rng = np.random.default_rng(SEED + 22)
+    root.mkdir(parents=True)
+    for split in ("train", "val", "test"):
+        names = [f"{EVAL_CATEGORY}/{split}{i:03d}" for i in range(n_models)]
+        (root / f"{split}.list").write_text("\n".join(names) + "\n")
+        for name in names:
+            gt = _eval_shape(rng, N_OUT)
+            side = gt @ rng.standard_normal(3) > 0
+            partial = gt[side][rng.choice(int(side.sum()), N_OUT)]
+            for kind, cloud in (("partial", partial), ("gt", gt)):
+                if kind == "gt" and split == "test":
+                    continue
+                path = root / split / kind / f"{name}.h5"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                with h5py.File(path, "w") as fh:
+                    fh.create_dataset("data", data=cloud)
+
+
+def drive_hyperrec(device, tmp: Path) -> dict:
+    """Phase 21: ``settings/config_completion.json``'s HyperRec model at full
+    width, fp32 with TF32 off, B=66 partial and gt clouds of 2048 points:
+    first-step gradients through the kernels against the plain Chamfer, 3
+    train steps (K1 twice a step) and a val step at B=10 (K3 once)."""
+    from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
+    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+    from hyperpocket_tpu_torch.train import optim, trainer
+    from hyperpocket_tpu_torch.train.losses import reconstruction_loss
+
+    config, model = build_model("float32", COMPLETION_CONFIG, SEED + 23)
+    tr = config["training"]
+    trainer.set_matmul_precision(tr["matmul_precision"])
+    loss_coef = float(tr["loss_coef"])
+    batch = int(tr["dataloader"]["train"]["batch_size"])
+    val_batch = int(tr["dataloader"]["val"]["batch_size"])
+    model = model.to(device)
+    check(model.mode == "hyper_rec", f"config_completion.json builds {model.mode}")
+    params = optim.trainable_parameters(model)
+    opt = optim.make_optimizer(tr["optimizer"], params)
+    train_step = trainer.make_train_step(model, opt, loss_coef)
+    val_step = trainer.make_val_step(model, loss_coef)
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    partial = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
+    gt = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
+    kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
+               "trunk_pool": trunk_pooled}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    out = {"batch": batch, "val_batch": val_batch}
+    steps = {"existing": partial, "missing": None, "gt": gt, "vae_eps": None}
+    balls = generate_target_network_input_batch(model.target_network_input, gen, 1.0, batch,
+                                                N_OUT)
+    reset()
+    g_kernel = first_step_grads(model, params, steps, balls,
+                                lambda g, rec: reconstruction_loss(g, rec, loss_coef))
+    grad_counts = counts()
+    g_plain = first_step_grads(model, params, steps, balls,
+                               lambda g, rec: loss_coef * chamfer_loss(g, rec))
+    rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
+    print(f"hyperrec: first-step gradients, kernels vs plain Chamfer, relative L2 {rel!r} "
+          f"(limit {STEP_GRAD_REL_L2}); launches {grad_counts}")
+    check(grad_counts == {"nn_one_direction": 2, "nn_min_fused": 0, "trunk_pool": 0},
+          f"hyperrec gradient check launched {grad_counts}")
+    check(rel <= STEP_GRAD_REL_L2, f"hyperrec first-step gradient relative L2 {rel}")
+
+    before = [p.detach().clone() for p in params]
+    reset()  # the main path: 3 train steps, then the val step
+    losses = []
+    for _ in range(3):
+        loss, loss_r, loss_k, rec = train_step(partial, None, gt, gen, 1.0, N_OUT)
+        losses.append([loss.item(), loss_r.item(), loss_k.item()])
+    torch.cuda.synchronize()
+    train_counts = counts()
+    reset()
+    val_loss, val_rec = val_step(partial[:val_batch], None, gt[:val_batch], gen, 1.0, N_OUT)
+    torch.cuda.synchronize()
+    val_counts = counts()
+    print(f"hyperrec: losses per step (all, rec, kld) {losses}, val loss {val_loss.item()!r}; "
+          f"launches in 3 train steps {train_counts}, in the val step {val_counts}")
+    check(all(np.isfinite(v) for row in losses for v in row) and losses[0][2] == 0.0,
+          f"hyperrec losses {losses}")
+    check(bool(torch.isfinite(val_loss)) and val_rec.shape == (val_batch, N_OUT, 3),
+          "hyperrec: bad val step output")
+    check(rec.shape == (batch, N_OUT, 3), f"hyperrec reconstruction {tuple(rec.shape)}")
+    check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
+          "hyperrec: a parameter with a gradient did not change")
+    check(train_counts == {"nn_one_direction": 6, "nn_min_fused": 0, "trunk_pool": 0},
+          f"hyperrec: 3 train steps launched {train_counts}")
+    check(val_counts == {"nn_one_direction": 0, "nn_min_fused": 1, "trunk_pool": 0},
+          f"hyperrec: the val step launched {val_counts}")
+    out.update(first_step_grad_rel_l2=rel, losses=losses, val_loss=val_loss.item(),
+               train_launches=train_counts, val_launches=val_counts)
+    out["train_step"] = step_ms(lambda i: train_step(partial, None, gt, gen, 1.0, N_OUT))
+    out["val_step"] = step_ms(lambda i: val_step(partial[:val_batch], None, gt[:val_batch],
+                                                 gen, 1.0, N_OUT))
+    print(f"hyperrec timing: train step B={batch} {json.dumps(out['train_step'])}, "
+          f"val step B={val_batch} {json.dumps(out['val_step'])}")
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("hyperrec: h5py is not installed here; the Completion3D reader was not run")
+        out["completion3d_reader"] = "not run: no h5py"
+        return out
+    from hyperpocket_tpu_torch.data.base import get_datasets
+
+    root = tmp / "completion3d"
+    _write_completion3d(root, 4)
+    train, val, test = get_datasets({**config["dataset"], "path": str(root)})
+    existing, missing, gt_cloud, name = train[0]
+    check(len(train) == 4 and len(val["chair"]) == 4 and len(test["all"]) == 4,
+          f"Completion3D splits {len(train)}, {len(val['chair'])}, {len(test['all'])}")
+    check(existing.shape == gt_cloud.shape == (N_OUT, 3) and missing == 0
+          and name == f"{EVAL_CATEGORY}/train000", f"Completion3D item {name}")
+    print(f"hyperrec: the Completion3D reader gave {len(train)} train, "
+          f"{sum(len(d) for d in val.values())} val and {len(test['all'])} test items")
+    out["completion3d_reader"] = "ok"
+    return out
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -1770,6 +2078,14 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
             wall_ms = 1e3 * batch / clouds_per_s(lambda s: f(existing, noise, s), batch,
                                                  iters=20, windows=1)["clouds_per_s"]
             record(f"{name}_B{batch}", lambda s: f(existing, noise, s), wall_ms, calls)
+        # the bf16 artifact of phase 19 at the same batch: the same kernels
+        # through the exported program
+        f = serving.load_completion(serving.export_completion(
+            model, batch=batch, n_existing=N_EXISTING, num_output_points=N_OUT, device=device))
+        wall_ms = 1e3 * batch / clouds_per_s(lambda s: f(existing, noise, s), batch,
+                                             iters=20, windows=1)["clouds_per_s"]
+        record(f"artifact_bf16_B{batch}", lambda s: f(existing, noise, s), wall_ms, calls)
+        del f
 
     tr = config["training"]
     # bf16 also with K8 (HPCD_TRUNK_FUSED_FWD=1) and with K11 (the fused head step)
@@ -1883,6 +2199,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     k10 = decode_vs_plain(model, model32, device)
     print(f"K10: {json.dumps(k10)} on {card}")
+    torch.cuda.empty_cache()
+    walls = {}
+    for name, phase in (("export", lambda tmp: drive_export(model, model32, device, tmp)),
+                        ("serving_cli", lambda tmp: drive_serving_cli(model, device, tmp)),
+                        ("hyperrec", lambda tmp: drive_hyperrec(device, tmp))):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            res = phase(Path(tmp))
+        walls[name] = time.perf_counter() - t0
+        print(f"{name}: {json.dumps(res)} on {card}")
+        torch.cuda.empty_cache()
+    print(f"phases 19-21 wall s: {json.dumps(walls)}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")

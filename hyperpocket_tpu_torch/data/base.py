@@ -3,8 +3,8 @@
 Port of ``hyperpocket_tpu/data/base.py`` (numpy, no framework). Datasets
 yield ``(existing, missing, gt, label)`` with clouds as (N, 3) float32
 arrays. ``get_datasets`` returns ``(train, val_dict, test_dict)`` for the
-``shapenet`` (MissingShapeNet) and ``3depn`` families; Completion3D is not
-ported yet.
+``shapenet`` (MissingShapeNet), ``completion`` (Completion3D) and ``3depn``
+families.
 """
 
 from __future__ import annotations
@@ -52,9 +52,13 @@ def get_datasets(config: dict):
             is_gen=config.get("gen_test_set", False), **common)
         return train, val, test
     if name == "completion":
-        raise NotImplementedError(
-            "the Completion3D dataset is not ported yet (ROADMAP.md, open items: "
-            "'Completion3D dataset')")
+        from hyperpocket_tpu_torch.data.completion3d import Completion3DDataset
+
+        classes = config.get("classes", [])
+        train = Completion3DDataset(root_dir=config["path"], split="train", classes=classes)
+        val = Completion3DDataset.get_validation_datasets(config["path"], classes=classes)
+        test = Completion3DDataset.get_test_datasets(config["path"])
+        return train, val, test
     if name == "3depn":
         from hyperpocket_tpu_torch.data.category_mapping import normalize_classes
         from hyperpocket_tpu_torch.data.shapenet_3depn import ShapeNet3DEPNDataset

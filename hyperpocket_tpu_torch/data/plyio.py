@@ -1,12 +1,17 @@
-"""PLY point-cloud I/O for the serving CLI.
+"""PLY I/O: point clouds, and whole files of elements.
 
-The (N, 3) x/y/z subset of ``hyperpocket_tpu/data/plyio.py``, kept inside
-this package so that the port runs without importing the JAX package:
-``load_ply`` reads the vertex x/y/z from ascii, binary_little_endian or
-binary_big_endian files, skipping the payload of any list property on the
-vertex element or on the elements before it.
-``save_ply`` writes binary little-endian float x/y/z, byte for byte the
-JAX package's layout.
+Port of ``hyperpocket_tpu/data/plyio.py``'s numpy code, kept inside this
+package so that the port runs without importing the JAX package:
+
+* ``load_ply`` reads the vertex x/y/z as (N, 3) float32 from ascii,
+  binary_little_endian or binary_big_endian files, skipping the payload of
+  any list property on the vertex element or on the elements before it;
+* ``save_ply`` writes binary little-endian float x/y/z, byte for byte the
+  JAX package's layout;
+* ``save_ply_elements`` / ``load_ply_elements`` write and read any
+  elements with scalar properties of every PLY type and list properties
+  (``ListProperty``), in the three formats, with comments: the same bytes
+  and the same arrays as the JAX package's.
 """
 
 from __future__ import annotations
@@ -160,3 +165,194 @@ def save_ply(path: str | os.PathLike, points: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(header.encode("ascii"))
         f.write(points.tobytes())
+
+
+# ---------------------------------------------------------------------------
+# Elements: any element, scalar and list properties
+
+_NUMPY_TO_PLY = {
+    "f4": "float", "f8": "double", "i1": "char", "u1": "uchar",
+    "i2": "short", "u2": "ushort", "i4": "int", "u4": "uint",
+}
+
+
+class ListProperty:
+    """A PLY list property: one 1-D array a row.
+
+    ``count_type`` and ``value_type`` are PLY type names ("uchar", "int", ...).
+    A row longer than ``count_type`` can count is refused here, before any
+    byte is written.
+    """
+
+    def __init__(self, rows, count_type: str = "uchar", value_type: str = "int"):
+        if count_type not in _PLY_TO_NUMPY or value_type not in _PLY_TO_NUMPY:
+            raise ValueError(f"unknown PLY type {count_type!r}/{value_type!r}")
+        self.rows = [np.asarray(r, dtype=_PLY_TO_NUMPY[value_type]) for r in rows]
+        count_max = np.iinfo(_PLY_TO_NUMPY[count_type]).max
+        for i, r in enumerate(self.rows):
+            if len(r) > count_max:
+                raise ValueError(f"list row {i} has {len(r)} elements, which overflows "
+                                 f"count_type {count_type!r} (max {count_max})")
+        self.count_type = count_type
+        self.value_type = value_type
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __eq__(self, other):
+        return (isinstance(other, ListProperty)
+                and self.count_type == other.count_type
+                and self.value_type == other.value_type
+                and len(self.rows) == len(other.rows)
+                and all(np.array_equal(a, b) for a, b in zip(self.rows, other.rows)))
+
+
+def _ply_type_name(arr: np.ndarray) -> str:
+    code = arr.dtype.str.lstrip("<>|=")
+    if code not in _NUMPY_TO_PLY:
+        raise ValueError(f"dtype {arr.dtype} has no PLY scalar type")
+    return _NUMPY_TO_PLY[code]
+
+
+def _ascii_scalar(v) -> str:
+    """Integers exactly; floats by ``repr``, which reads back to the same value."""
+    if np.issubdtype(np.asarray(v).dtype, np.integer):
+        return str(int(v))
+    return repr(float(v))
+
+
+def save_ply_elements(path, elements, fmt: str = "binary_little_endian",
+                      comments=()) -> None:
+    """Write ``elements``: a sequence of ``(name, props)``, ``props`` a sequence
+    of ``(prop_name, data)`` with data a 1-D array (its dtype gives the PLY
+    type) or a ``ListProperty``. The properties of an element have one
+    length. ``fmt``: ascii, binary_little_endian or binary_big_endian."""
+    if fmt not in ("ascii", "binary_little_endian", "binary_big_endian"):
+        raise ValueError(f"unsupported PLY format {fmt!r}")
+    endian = ">" if fmt == "binary_big_endian" else "<"
+    lines = ["ply", f"format {fmt} 1.0"]
+    lines += [f"comment {c}" for c in comments]
+    norm = []
+    for name, props in elements:
+        counts = {len(d) for _, d in props}
+        if len(counts) != 1:
+            raise ValueError(f"element {name!r}: property lengths differ: {counts}")
+        (count,) = counts
+        lines.append(f"element {name} {count}")
+        nprops = []
+        for pname, data in props:
+            if isinstance(data, ListProperty):
+                lines.append(f"property list {data.count_type} {data.value_type} {pname}")
+            else:
+                data = np.asarray(data)
+                if data.ndim != 1:
+                    raise ValueError(f"scalar property {name}.{pname} must be 1-D")
+                lines.append(f"property {_ply_type_name(data)} {pname}")
+            nprops.append((pname, data))
+        norm.append((count, nprops))
+    lines.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(lines) + "\n").encode("ascii"))
+        for count, nprops in norm:
+            if fmt == "ascii":
+                for r in range(count):
+                    toks = []
+                    for _, data in nprops:
+                        if isinstance(data, ListProperty):
+                            toks.append(str(len(data.rows[r])))
+                            toks += [_ascii_scalar(v) for v in data.rows[r]]
+                        else:
+                            toks.append(_ascii_scalar(data[r]))
+                    f.write((" ".join(toks) + "\n").encode("ascii"))
+            elif not any(isinstance(d, ListProperty) for _, d in nprops):
+                rec = np.empty(count, dtype=np.dtype(
+                    [(p, endian + d.dtype.str.lstrip("<>|=")) for p, d in nprops]))
+                for pname, data in nprops:
+                    rec[pname] = data
+                f.write(rec.tobytes())
+            else:
+                for r in range(count):
+                    for _, data in nprops:
+                        if isinstance(data, ListProperty):
+                            row = data.rows[r]
+                            f.write(np.asarray(len(row), dtype=endian
+                                               + _PLY_TO_NUMPY[data.count_type]).tobytes())
+                            f.write(row.astype(endian + _PLY_TO_NUMPY[data.value_type]).tobytes())
+                        else:
+                            f.write(np.asarray(data[r], dtype=endian
+                                               + data.dtype.str.lstrip("<>|=")).tobytes())
+
+
+def load_ply_elements(path):
+    """Read a whole PLY file: ``[(element, [(prop, data), ...]), ...]``, the
+    structure ``save_ply_elements`` takes, scalars as native-endian 1-D
+    arrays and lists as ``ListProperty``."""
+    with open(path, "rb") as f:
+        fmt, elements = _parse_header(f)
+        if fmt == "ascii":
+            return _load_elements_ascii(path, f, elements)
+        endian = {"binary_little_endian": "<", "binary_big_endian": ">"}.get(fmt)
+        if endian is None:
+            raise PlyParseError(f"{path}: unsupported PLY format {fmt!r}")
+        return _load_elements_binary(path, f.read(), elements, endian)
+
+
+def _columns(cols: dict, props) -> list:
+    return [(p, ListProperty(cols[p], t[1], t[2]) if isinstance(t, tuple)
+             else np.asarray(cols[p], dtype=_PLY_TO_NUMPY[t])) for p, t in props]
+
+
+def _load_elements_binary(path, buf: bytes, elements, endian: str):
+    pos, result = 0, []
+    for name, n_rows, props in elements:
+        if all(not isinstance(t, tuple) for _, t in props):
+            dtype = np.dtype([(p, endian + _PLY_TO_NUMPY[t]) for p, t in props])
+            end = pos + dtype.itemsize * n_rows
+            if end > len(buf):
+                raise PlyParseError(f"{path}: truncated element {name!r}")
+            rec = np.frombuffer(buf, dtype=dtype, count=n_rows, offset=pos)
+            result.append((name, [(p, np.ascontiguousarray(rec[p]).astype(
+                rec[p].dtype.newbyteorder("="))) for p, _ in props]))
+            pos = end
+            continue
+        cols: dict[str, list] = {p: [] for p, _ in props}
+        for _ in range(n_rows):
+            for p, t in props:
+                if isinstance(t, tuple):
+                    _, ct, vt = t
+                    k = int(_scalar(path, buf, pos, ct, endian))
+                    pos += np.dtype(_PLY_TO_NUMPY[ct]).itemsize
+                    size = k * np.dtype(_PLY_TO_NUMPY[vt]).itemsize
+                    if pos + size > len(buf):
+                        raise PlyParseError(f"{path}: truncated element {name!r}")
+                    cols[p].append(np.frombuffer(buf, endian + _PLY_TO_NUMPY[vt], count=k,
+                                                 offset=pos).astype(_PLY_TO_NUMPY[vt]))
+                    pos += size
+                else:
+                    cols[p].append(_scalar(path, buf, pos, t, endian))
+                    pos += np.dtype(_PLY_TO_NUMPY[t]).itemsize
+        result.append((name, _columns(cols, props)))
+    return result
+
+
+def _load_elements_ascii(path, f, elements):
+    result = []
+    for name, n_rows, props in elements:
+        cols: dict[str, list] = {p: [] for p, _ in props}
+        for _ in range(n_rows):
+            tokens = f.readline().split()
+            if not tokens and props:
+                raise PlyParseError(f"{path}: truncated element {name!r}")
+            i = 0
+            for p, t in props:
+                if isinstance(t, tuple):
+                    k = int(tokens[i])
+                    cols[p].append(np.array(tokens[i + 1:i + 1 + k], dtype=_PLY_TO_NUMPY[t[2]]))
+                    i += 1 + k
+                else:
+                    cols[p].append(np.dtype(_PLY_TO_NUMPY[t]).type(float(tokens[i]))
+                                   if t in ("float", "float32", "double", "float64")
+                                   else int(tokens[i]))
+                    i += 1
+        result.append((name, _columns(cols, props)))
+    return result

@@ -13,6 +13,10 @@ Counterparts of ``hyperpocket_tpu/ops/pallas_encoder.py``:
 Both kernels are ``csrc/trunk_pool.cu`` (its header says how it is laid out
 on the H100); ``trunk_pooled_reference`` and
 ``trunk_pooled_argmax_reference`` are the same arithmetic in plain PyTorch.
+K4 is registered as the custom op ``hyperpocket::trunk_pooled`` (x and flat
+weight and bias lists; its CUDA kernel launches K4, its CPU kernel runs the
+plain version, its fake kernel gives the (B, 512) bf16 shape), which
+``torch.export`` keeps as one node of an exported serving program.
 
 ``layers`` is a sequence of ``(weight, bias)`` pairs in ``nn.Linear`` layout:
 weight (out, in), bias (out,) or None.
@@ -146,13 +150,32 @@ def _launch(symbol: str, x: torch.Tensor, args: list[torch.Tensor],
 def trunk_pooled(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     """K4: x (B, N, 3) -> pooled features (B, 512) bf16.
 
-    A CUDA tensor launches the kernel on the current stream (or raises);
-    a CPU tensor runs ``trunk_pooled_reference``. ``trunk_pooled.launches``
-    counts kernel launches.
+    Calls the custom op ``hyperpocket::trunk_pooled`` with the layers as
+    flat weight and bias lists (an absent bias as zeros), so that
+    ``torch.export`` records K4 as one node that launches the kernel when
+    the exported program runs. A CUDA tensor launches the kernel on the
+    current stream (or raises); a CPU tensor runs
+    ``trunk_pooled_reference``. ``trunk_pooled.launches`` counts kernel
+    launches.
     """
+    return torch.ops.hyperpocket.trunk_pooled(x, [w for w, _ in layers],
+                                              [_bias(w, b) for w, b in layers])
+
+
+trunk_pooled.launches = 0
+
+
+@torch.library.custom_op("hyperpocket::trunk_pooled", mutates_args=(), device_types="cpu")
+def _trunk_pooled_op(x: torch.Tensor, weights: list[torch.Tensor],
+                     biases: list[torch.Tensor]) -> torch.Tensor:
+    return trunk_pooled_reference(list(zip(weights, biases)), x)
+
+
+@_trunk_pooled_op.register_kernel("cuda")
+def _trunk_pooled_cuda(x: torch.Tensor, weights: list[torch.Tensor],
+                       biases: list[torch.Tensor]) -> torch.Tensor:
+    layers = list(zip(weights, biases))
     _check(layers, x)
-    if x.device.type == "cpu":
-        return trunk_pooled_reference(layers, x)
     args = _kernel_operands(layers, x)
     shape = (x.shape[0], WIDTHS[-1])
     pooled = torch.empty(shape, dtype=torch.float32, device=x.device)
@@ -162,7 +185,11 @@ def trunk_pooled(layers: Layers, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-trunk_pooled.launches = 0
+@_trunk_pooled_op.register_fake
+def _trunk_pooled_fake(x: torch.Tensor, weights: list[torch.Tensor],
+                       biases: list[torch.Tensor]) -> torch.Tensor:
+    _check(list(zip(weights, biases)), x)
+    return x.new_empty((x.shape[0], WIDTHS[-1]), dtype=torch.bfloat16)
 
 
 def trunk_pooled_argmax(layers: Layers, x: torch.Tensor):

@@ -1,47 +1,81 @@
 """Completion serving: existing half-cloud + latent noise -> completed cloud.
 
-Port of ``hyperpocket_tpu/serving.py``. ``make_serving_fn`` returns
-``f(existing (B, N, 3) f32, noise (B, Z) f32, seed int) ->
-(B, num_output_points, 3) f32`` with the (serving-cast) parameters closed
-over. The seed seeds a ``torch.Generator`` on the serving device that draws
-the target network's ball points; a fixed seed gives a fixed completion, but
-not the JAX package's bits for the same seed.
+Port of ``hyperpocket_tpu/serving.py``. Serving signature::
 
-CLI, PLY in and completion PLY out::
+    f(existing (B, N, 3) f32, noise (B, Z) f32, seed int) -> (B, num_output_points, 3) f32
 
-    python -m hyperpocket_tpu_torch.serving infer --config settings/config_3depn_chair.json \\
+``make_serving_fn`` returns it with the (serving-cast) parameters closed
+over. ``export_completion`` writes the completion forward as a
+``torch.export`` artifact (``.pt2`` bytes) that serves without the config or
+the checkpoint tree, and ``load_completion`` gives the same callable back
+from those bytes. The seed seeds a ``torch.Generator`` on the serving device
+that draws the target network's ball points: a fixed seed gives a fixed
+completion, the same through the artifact as through ``make_serving_fn``,
+but not the JAX package's bits for the same seed.
+
+The artifact's program takes ``(existing, noise, ball_points)``: a generator
+cannot be an input of an exported program, so ``load_completion`` draws the
+ball points from the seed with the sampling settings stored inside the
+``.pt2`` (``target_network_input``, ``ball_method``, the epoch and the point
+count). The parameters are cast once to the compute dtype and travel inside
+the artifact; batch and ``n_existing`` are fixed. The fused trunk kernel K4
+is the custom op ``hyperpocket::trunk_pooled`` in the exported graph, so
+loading an artifact needs this package (for the op), not the model code's
+config or checkpoints. The exporting device is the serving device: the
+route through K4 and every tensor's device are fixed at export, and an
+artifact exported on ``cuda`` refuses to load where CUDA is absent.
+
+CLI::
+
+    # export (bare flags are export too)
+    python -m hyperpocket_tpu_torch.serving export --config settings/config_3depn_chair.json \\
+        --out model.pt2 [--batch 64] [--n-existing 1024] [--points 2048] [--epoch best_val] \\
+        [--device cuda]
+
+    # PLY in, completion PLY out, from an artifact or from a config's checkpoint
+    python -m hyperpocket_tpu_torch.serving infer (--artifact model.pt2 | --config cfg.json) \\
         --inputs scan1.ply scan2.ply --out-dir completions/ \\
-        [--epoch best_val] [--batch 64] [--n-existing 1024] [--points 2048] \\
-        [--samples 4 --noise-std 0.13] [--seed 0] [--no-normalize] [--device cuda]
+        [--samples 4 --noise-std 0.13 | --latent-prior prior.npz] [--seed 0] [--no-normalize]
 
-One interface difference from the JAX CLI: the JAX ``infer`` reads a
-``jax.export`` artifact, and its ``export`` step takes ``--config``,
-``--epoch``, ``--batch``, ``--n-existing`` and ``--points``. This ``infer``
-takes those flags itself and restores the JAX-layout checkpoint of the
-config's results tree (``train/checkpoint.py``); the port has no artifact
-export yet. Inputs are normalised into the 0.9 box like the real-scan
-dataset and completions are mapped back by inverting that transform; the
-tail of the jobs is padded to the fixed batch. ``--device`` defaults to
-``cuda`` and raises when CUDA is absent.
+    # fit the latent prior that infer --latent-prior draws from
+    python -m hyperpocket_tpu_torch.serving fit-prior --config cfg.json --out prior.npz \\
+        [--max-items 1024] [--batch-size 64] [--device cuda]
+
+``export`` also writes ``<out>.json`` with the JAX package's keys
+(``platform`` holds the torch device type). ``infer --config`` takes
+``--epoch``, ``--batch``, ``--n-existing``, ``--points`` and ``--device``
+itself and restores the JAX-layout checkpoint of the config's results tree
+(``train/checkpoint.py``); with ``--artifact`` those come from the artifact.
+Inputs are normalised into the 0.9 box like the real-scan dataset and
+completions are mapped back by inverting that transform; the tail of the
+jobs is padded to the fixed batch. ``--device`` defaults to ``cuda`` and
+raises when CUDA is absent.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import io
 import json
 import os
 import sys
+import zipfile
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from hyperpocket_tpu_torch.data.base import resample_pcd
 from hyperpocket_tpu_torch.data.plyio import load_ply, save_ply
 from hyperpocket_tpu_torch.data.real_data import get_scales
 from hyperpocket_tpu_torch.models.full_model import FullModel
+from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
 from hyperpocket_tpu_torch.train.checkpoint import restore_trained_model
+
+ARTIFACT_SUFFIX = ".pt2"
+META_FILE = "hyperpocket_serving.json"  # the sampling settings inside the .pt2
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -49,6 +83,17 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def _serving_net(model: FullModel, params_or_module, device: torch.device) -> FullModel:
+    if params_or_module is None:
+        net = model
+    elif isinstance(params_or_module, FullModel):
+        net = params_or_module
+    else:
+        net = copy.deepcopy(model)
+        net.load_state_dict(params_or_module)
+    return net.serving_params().to(device)
 
 
 def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | None = None, *,
@@ -63,14 +108,7 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
     the schedule (the default) every ball point lies on the unit sphere.
     """
     device = resolve_device(device)
-    if params_or_module is None:
-        net = model
-    elif isinstance(params_or_module, FullModel):
-        net = params_or_module
-    else:
-        net = copy.deepcopy(model)
-        net.load_state_dict(params_or_module)
-    net = net.serving_params().to(device)
+    net = _serving_net(model, params_or_module, device)
     epoch = float(epoch)
 
     def completion(existing, noise, seed: int) -> torch.Tensor:
@@ -83,21 +121,129 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
     return completion
 
 
+class _CompletionProgram(nn.Module):
+    """The exported forward: ``(existing, noise, ball_points) -> completion``.
+
+    ``FullModel._forward`` with the inference flags, traced under the
+    exporter's ``torch.no_grad``; ``apply`` opens its own.
+    """
+
+    def __init__(self, net: FullModel, num_output_points: int):
+        super().__init__()
+        self.net = net
+        self.num_output_points = num_output_points
+
+    def forward(self, existing, noise, ball_points):
+        return self.net._forward(existing, None, None, None, self.num_output_points, False,
+                                 noise, None, ball_points, None, False)
+
+
+def export_completion(model: FullModel, params_or_module: FullModel | Mapping | None = None, *,
+                      batch: int, n_existing: int = 1024, num_output_points: int = 2048,
+                      epoch: float = 1e9, data_parallel: int | None = None,
+                      device: str | torch.device = "cuda") -> bytes:
+    """The completion forward for (batch, n_existing) inputs as ``.pt2`` bytes.
+
+    ``params_or_module`` as in ``make_serving_fn``. The program is traced on
+    ``device``, which becomes the artifact's serving device. ``data_parallel``
+    above 1 is not ported; 1 exports unsharded, as in the JAX package.
+    """
+    if data_parallel is not None and data_parallel > 1:
+        raise NotImplementedError(
+            "the data-parallel export is not ported (ROADMAP.md §1, item 7: "
+            "'parallel/*', data-parallel serving and export)")
+    device = resolve_device(device)
+    net = _serving_net(model, params_or_module, device)
+    example = (torch.zeros((batch, n_existing, 3), device=device),
+               torch.zeros((batch, net.get_noise_size()), device=device),
+               torch.zeros((batch, num_output_points, 3), device=device))
+    with torch.no_grad():
+        program = torch.export.export(_CompletionProgram(net, num_output_points), example,
+                                      strict=False)
+    meta = {
+        "device": str(device),
+        "batch": batch,
+        "n_existing": n_existing,
+        "num_output_points": num_output_points,
+        "noise_size": net.get_noise_size(),
+        "epoch": float(epoch),
+        "target_network_input": net.target_network_input,
+        "ball_method": net.ball_method,
+        "compute_dtype": net.compute_dtype,
+    }
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={META_FILE: json.dumps(meta)})
+    return buf.getvalue()
+
+
+def artifact_meta(data: bytes) -> dict:
+    """The sampling settings stored in an artifact, read without loading its program."""
+    with zipfile.ZipFile(io.BytesIO(data)) as zf:
+        for name in zf.namelist():
+            parts = name.split("/")
+            if parts[-1] == META_FILE and parts[-2] in ("extra", "extra_files"):
+                return json.loads(zf.read(name))
+    raise ValueError(f"not a completion artifact: no {META_FILE} inside")
+
+
+def load_completion(data: bytes):
+    """The serving callable from artifact bytes; ``.meta`` holds its settings.
+
+    Raises when the artifact's device is absent (an artifact exported on
+    ``cuda`` never serves on the CPU). The ball points are drawn from the
+    seed exactly as ``make_serving_fn`` draws them.
+    """
+    meta = artifact_meta(data)
+    device = resolve_device(meta["device"])
+    program = torch.export.load(io.BytesIO(data)).module()
+
+    def completion(existing, noise, seed: int) -> torch.Tensor:
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        balls = generate_target_network_input_batch(
+            meta["target_network_input"], generator, meta["epoch"], meta["batch"],
+            meta["num_output_points"], method=meta["ball_method"])
+        existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
+        with torch.no_grad():
+            return program(existing, noise, balls)
+
+    completion.meta = meta
+    return completion
+
+
+def _load_prior(path: str | None, zdim: int):
+    """The latent prior of ``infer --latent-prior``, checked against the noise size."""
+    if path is None:
+        return None
+    from hyperpocket_tpu_torch.eval.latent_stats import load_latent_gaussian
+
+    lg = load_latent_gaussian(path)
+    if lg.dim != zdim:
+        raise SystemExit(f"latent prior dim {lg.dim} != noise_size {zdim}")
+    return lg
+
+
 def infer_main(argv=None) -> int:
     """``python -m hyperpocket_tpu_torch.serving infer``: PLY in -> completion PLY out."""
     ap = argparse.ArgumentParser(
         prog="python -m hyperpocket_tpu_torch.serving infer",
-        description="Complete partial point clouds from PLY files with a trained model")
-    ap.add_argument("-c", "--config", required=True,
-                    help="training config json (reference schema) naming the results tree")
+        description="Complete partial point clouds from PLY files with an exported "
+                    "artifact or a trained model's checkpoint")
+    source = ap.add_mutually_exclusive_group(required=True)
+    source.add_argument("--artifact", help="artifact written by `export` (.pt2)")
+    source.add_argument("-c", "--config",
+                        help="training config json (reference schema) naming the results tree")
     ap.add_argument("--inputs", nargs="+", required=True, help="partial-cloud .ply files")
     ap.add_argument("--out-dir", required=True)
     ap.add_argument("--epoch", default=None,
-                    help="restore policy: latest | best_val | <int> "
+                    help="--config only: restore policy latest | best_val | <int> "
                          "(default: the config's experiments.epoch, else latest)")
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--n-existing", type=int, default=1024)
-    ap.add_argument("--points", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=None, help="--config only (default 64)")
+    ap.add_argument("--n-existing", type=int, default=None, help="--config only (default 1024)")
+    ap.add_argument("--points", type=int, default=None, help="--config only (default 2048)")
+    ap.add_argument("--device", default=None,
+                    help="--config only (default cuda); an artifact serves on the device "
+                         "it was exported on")
     ap.add_argument("--seed", type=int, default=0,
                     help="ball-sampling/noise seed (fixed seed + zero noise "
                          "=> deterministic completions)")
@@ -106,19 +252,39 @@ def infer_main(argv=None) -> int:
     ap.add_argument("--noise-std", type=float, default=0.0,
                     help="latent noise std (the reference's fixed experiment "
                          "uses 0.13; 0 = zero-noise completion)")
+    ap.add_argument("--latent-prior", default=None,
+                    help="npz from `fit-prior` (mean + covariance Cholesky): draw the "
+                         "latent noise from the fitted code Gaussian instead of the "
+                         "isotropic --noise-std draw")
     ap.add_argument("--no-normalize", action="store_true",
                     help="inputs are already in the training distribution; "
                          "skip 0.9-box normalization and output rescale")
-    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    with open(args.config) as fh:
-        config = json.load(fh)
-    model, epoch = restore_trained_model(config, args.epoch)
-    f = make_serving_fn(model, num_output_points=args.points, epoch=float(epoch),
-                        device=device)
-    batch, zdim = args.batch, model.get_noise_size()
+    if args.artifact:
+        fixed = [flag for flag, v in (("--epoch", args.epoch), ("--batch", args.batch),
+                                      ("--n-existing", args.n_existing),
+                                      ("--points", args.points), ("--device", args.device))
+                 if v is not None]
+        if fixed:
+            ap.error(f"{', '.join(fixed)}: fixed by the artifact, given with --config only")
+        with open(args.artifact, "rb") as fh:
+            data = fh.read()
+        meta = artifact_meta(data)
+        batch, n_exist, zdim = meta["batch"], meta["n_existing"], meta["noise_size"]
+        lg = _load_prior(args.latent_prior, zdim)  # checked before any completion
+        f = load_completion(data)
+        result = {"artifact": args.artifact, "device": meta["device"]}
+    else:
+        device = resolve_device(args.device or "cuda")
+        with open(args.config) as fh:
+            config = json.load(fh)
+        model, epoch = restore_trained_model(config, args.epoch)
+        batch, n_exist, zdim = args.batch or 64, args.n_existing or 1024, model.get_noise_size()
+        lg = _load_prior(args.latent_prior, zdim)
+        f = make_serving_fn(model, num_output_points=args.points or 2048, epoch=float(epoch),
+                            device=device)
+        result = {"config": args.config, "restored_epoch": epoch, "device": str(device)}
 
     rng = np.random.default_rng(args.seed)
     clouds, transforms = [], []
@@ -130,7 +296,7 @@ def infer_main(argv=None) -> int:
             center, scale = get_scales(pts)
             pts = (pts - center) / scale
         transforms.append((center, scale))
-        clouds.append(resample_pcd(pts, args.n_existing, rng).astype(np.float32))
+        clouds.append(resample_pcd(pts, n_exist, rng).astype(np.float32))
 
     os.makedirs(args.out_dir, exist_ok=True)
     jobs = [(i, k) for i in range(len(clouds)) for k in range(args.samples)]
@@ -140,7 +306,10 @@ def infer_main(argv=None) -> int:
         ex = np.stack([clouds[i] for i, _ in chunk])
         if len(chunk) < batch:  # pad the tail to the fixed batch
             ex = np.concatenate([ex, np.repeat(ex[-1:], batch - len(chunk), 0)])
-        if args.noise_std > 0:
+        if lg is not None:
+            eps = rng.standard_normal((batch, zdim)).astype(np.float32)
+            noise = lg.mean + eps @ lg.scale_tril.T
+        elif args.noise_std > 0:
             noise = rng.standard_normal((batch, zdim)).astype(np.float32) * args.noise_std
         else:
             noise = np.zeros((batch, zdim), np.float32)
@@ -154,17 +323,106 @@ def infer_main(argv=None) -> int:
             path = os.path.join(args.out_dir, name)
             save_ply(path, np.asarray(rec, np.float32))
             written.append(path)
-    print(json.dumps({"config": args.config, "restored_epoch": epoch, "inputs": len(clouds),
-                      "samples": args.samples, "device": str(device), "written": written}))
+    print(json.dumps({**result, "inputs": len(clouds), "samples": args.samples,
+                      "written": written}))
+    return 0
+
+
+def fit_prior_main(argv=None) -> int:
+    """``python -m hyperpocket_tpu_torch.serving fit-prior``: fit the empirical
+    latent Gaussian on the val split's missing halves and save it as the npz
+    that ``infer --latent-prior`` reads."""
+    ap = argparse.ArgumentParser(
+        prog="python -m hyperpocket_tpu_torch.serving fit-prior",
+        description="Fit the empirical latent prior of a trained model")
+    ap.add_argument("-c", "--config", required=True,
+                    help="training config json (reference schema)")
+    ap.add_argument("--out", required=True, help="output .npz path")
+    ap.add_argument("--max-items", type=int, default=1024)
+    ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from hyperpocket_tpu_torch.data.base import get_datasets
+    from hyperpocket_tpu_torch.eval.latent_stats import (
+        collect_val_missing_halves,
+        fit_latent_gaussian,
+        save_latent_gaussian,
+    )
+
+    device = resolve_device(args.device)
+    with open(args.config) as fh:
+        config = json.load(fh)
+    model, epoch = restore_trained_model(config, device=device)
+    _, val_dict, _ = get_datasets(config["dataset"])
+    try:
+        halves = collect_val_missing_halves(val_dict, args.max_items)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    lg = fit_latent_gaussian(model, halves, args.batch_size, device=device)
+    save_latent_gaussian(lg, args.out)
+    print(json.dumps({"out": args.out, "epoch": epoch, "fitted_on": len(halves),
+                      "dim": lg.dim}))
+    return 0
+
+
+def export_main(argv=None) -> int:
+    """``python -m hyperpocket_tpu_torch.serving export``: checkpoint -> artifact + sidecar."""
+    ap = argparse.ArgumentParser(
+        prog="python -m hyperpocket_tpu_torch.serving export",
+        description="Export a trained completion model as a torch.export artifact")
+    ap.add_argument("-c", "--config", required=True,
+                    help="training config json (reference schema)")
+    ap.add_argument("--out", required=True, help="artifact output path")
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--n-existing", type=int, default=1024)
+    ap.add_argument("--points", type=int, default=2048)
+    ap.add_argument("--epoch", default=None,
+                    help="restore policy: latest | best_val | <int> "
+                         "(default: the config's experiments.epoch, else latest)")
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="not ported above 1 (ROADMAP.md §1, item 7)")
+    ap.add_argument("--device", default="cuda",
+                    help="the device the artifact is traced on and serves on")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    with open(args.config) as fh:
+        config = json.load(fh)
+    model, epoch = restore_trained_model(config, args.epoch)
+    data = export_completion(model, batch=args.batch, n_existing=args.n_existing,
+                             num_output_points=args.points, epoch=float(epoch),
+                             data_parallel=args.data_parallel, device=device)
+    with open(args.out, "wb") as fh:
+        fh.write(data)
+    meta = {
+        "artifact": args.out,
+        "bytes": len(data),
+        "restored_epoch": epoch,
+        "batch": args.batch,
+        "n_existing": args.n_existing,
+        "num_output_points": args.points,
+        "noise_size": model.get_noise_size(),
+        "data_parallel": args.data_parallel,
+        "platform": device.type,
+        "compute_dtype": model.compute_dtype,
+    }
+    with open(args.out + ".json", "w") as fh:
+        json.dump(meta, fh, indent=1)
+    print(json.dumps(meta))
     return 0
 
 
 def main(argv=None) -> int:
+    """Subcommands ``export`` (also the bare flags), ``infer`` and ``fit-prior``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["infer"]:
         return infer_main(argv[1:])
-    raise SystemExit("usage: python -m hyperpocket_tpu_torch.serving infer --config ... "
-                     "(artifact export and fit-prior are not ported yet)")
+    if argv[:1] == ["fit-prior"]:
+        return fit_prior_main(argv[1:])
+    if argv[:1] == ["export"]:
+        argv = argv[1:]
+    return export_main(argv)
 
 
 if __name__ == "__main__":

@@ -780,3 +780,96 @@ def test_fused_training_trunk_launches_k8_once(monkeypatch):
     assert (got - want).abs().max().item() <= 0.05 * want.abs().max().item()
     for g, w in zip(got_grads, want_grads):
         assert (g - w).norm().item() <= 0.1 * w.norm().item()
+
+
+# ---------------------------------------------------------------------------
+# K4 as the custom op hyperpocket::trunk_pooled, the exported artifact, and
+# the HyperRec configuration's steps
+
+
+def test_trunk_op_opcheck_on_cuda(layers):
+    """The op's schema, fake tensor and dispatch checks with CUDA tensors;
+    every call through the op launches K4. The op has no gradient (K4 serves
+    inference), so the checks take tensors that need none."""
+    x = _cloud(2, 64, seed=2)
+    weights, biases = [w.detach() for w, _ in layers], [b.detach() for _, b in layers]
+    torch.library.opcheck(torch.ops.hyperpocket.trunk_pooled.default, (x, weights, biases))
+    before = trunk_pooled.launches
+    got = torch.ops.hyperpocket.trunk_pooled(x, weights, biases)
+    torch.cuda.synchronize()
+    assert trunk_pooled.launches == before + 1
+    assert (got.float() - trunk_pooled_reference(layers, x).float()).abs().max() <= BF16_ATOL
+
+
+def _settings(name: str) -> dict:
+    import json
+    from pathlib import Path
+
+    return json.loads((Path(__file__).resolve().parents[1] / "settings" / name).read_text())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_artifact_serves_on_the_card(cuda, dtype):
+    """The chair model at full width exported on the card: the artifact's
+    completion is make_serving_fn's for the same seed (fp32 within 1e-5 of
+    the output's scale, bf16 within 2e-2: K4's bound), and the bf16 program
+    holds the op and launches K4 once a call."""
+    import io
+
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    cfg["compute_dtype"] = dtype
+    model = FullModel.from_config(cfg, torch.Generator().manual_seed(5))
+    batch, n_existing, n_out = 4, 1024, 2048
+    data = serving.export_completion(model, batch=batch, n_existing=n_existing,
+                                     num_output_points=n_out, device=cuda)
+    f = serving.load_completion(data)
+    assert f.meta["device"].startswith("cuda")
+    targets = {str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes}
+    assert ("hyperpocket.trunk_pooled.default" in targets) == (dtype == "bfloat16")
+    existing = _points(batch, n_existing, seed=8)
+    noise = torch.randn((batch, model.get_noise_size()), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9)) * 0.13
+    want = serving.make_serving_fn(model, num_output_points=n_out, device=cuda)(
+        existing, noise, 21)
+    before = trunk_pooled.launches
+    got = f(existing, noise, 21)
+    again = f(existing, noise, 21)
+    torch.cuda.synchronize()
+    assert trunk_pooled.launches == before + (2 if dtype == "bfloat16" else 0)
+    assert got.shape == (batch, n_out, 3) and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got, again)
+    tol = 1e-5 if dtype == "float32" else BF16_ATOL
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
+    """settings/config_completion.json's model (HyperRec) at full width: a
+    train step launches K1 twice and no K3, a val step K3 once, and the
+    trunk runs no K4 in fp32."""
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    config = _settings("config_completion.json")
+    model = FullModel.from_config(config["full_model"],
+                                  torch.Generator().manual_seed(7)).to(cuda)
+    assert model.mode == "hyper_rec"
+    tr = config["training"]
+    opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(model))
+    train_step = trainer.make_train_step(model, opt, float(tr["loss_coef"]))
+    val_step = trainer.make_val_step(model, float(tr["loss_coef"]))
+    partial, gt = _points(6, 2048, seed=10), _points(6, 2048, seed=11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    kernels = (nn_one_direction, nn_min_fused, trunk_pooled)
+    before = [k.launches for k in kernels]
+    loss, loss_r, loss_k, rec = train_step(partial, None, gt, gen, 1.0, 2048)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 0]
+    assert torch.isfinite(loss) and rec.shape == (6, 2048, 3) and loss_k.item() == 0.0
+    before = [k.launches for k in kernels]
+    val_loss, val_rec = val_step(partial[:4], None, gt[:4], gen, 1.0, 2048)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0]
+    assert torch.isfinite(val_loss) and val_rec.shape == (4, 2048, 3)

@@ -335,8 +335,22 @@ def test_3depn_datasets_match_jax(tmp_path):
     test = _same_datasets(cfg)
     raw, placeholder, real, name = test["chair"][0]
     assert raw.shape == (1024, 3) and real.shape == (2048, 3) and placeholder == 0
-    with pytest.raises(NotImplementedError, match="Completion3D"):
-        pbase.get_datasets({"name": "completion", "path": str(tmp_path)})
+    # Completion3D: one train, val and test model, the same items as the JAX package's
+    import h5py
+
+    c3d = tmp_path / "completion"
+    for split, kinds in (("train", ("partial", "gt")), ("val", ("partial", "gt")),
+                         ("test", ("partial",))):
+        os.makedirs(c3d / split, exist_ok=True)
+        (c3d / f"{split}.list").write_text(f"{CHAIR}/m_{split}\n")
+        for kind in kinds:
+            os.makedirs(c3d / split / kind / CHAIR, exist_ok=True)
+            with h5py.File(c3d / split / kind / CHAIR / f"m_{split}.h5", "w") as fh:
+                fh.create_dataset("data", data=_clouds(1, 64, 16)[0])
+    test = _same_datasets({"name": "completion", "path": str(c3d)})
+    existing, placeholder, gt, name = test["all"][0]
+    assert existing.shape == (64, 3) and placeholder == 0 and name == f"{CHAIR}/m_test"
+    np.testing.assert_array_equal(gt, existing)
 
 
 # ---------------------------------------------------------------------------

@@ -287,11 +287,15 @@ def test_resample_and_scales_match_jax():
 
 
 def test_port_imports_without_jax():
-    """The serving path imports neither jax nor the JAX package."""
+    """The serving path, its artifact and prior and the data readers import
+    neither jax nor the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import hyperpocket_tpu_torch.serving, hyperpocket_tpu_torch.convert\n"
+        "import hyperpocket_tpu_torch.data, hyperpocket_tpu_torch.data.completion3d\n"
+        "import hyperpocket_tpu_torch.data.real_data, hyperpocket_tpu_torch.eval.latent_stats\n"
+        "import hyperpocket_tpu_torch.ops.trunk_pool, hyperpocket_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'hyperpocket_tpu' or m.startswith('hyperpocket_tpu.')"
         " or m.startswith('jax')]\n"
         "assert bad == ['jax'], bad\n"
