@@ -14,8 +14,9 @@ Phases, each fatal on any error:
 2. build: compiles ``hyperpocket_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one nvcc per source, all started together, and prints ptxas' registers,
    shared memory and spills of the trunk kernels' two instantiations (K4,
-   K8) and of the fused NN sweep's two copies (K5, K9); a spill fails the
-   run.
+   K8), of the fused NN sweep's two copies (K5, K9) and of the bf16 decode
+   kernel's two instantiations (K10: up to 128 and up to 256 channels); a
+   spill fails the run.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
    plain PyTorch version on the card, at the serving shapes and at ragged,
    single-cloud, odd-tile-count (1, 2, 5 tiles) and tied inputs and with
@@ -27,10 +28,11 @@ Phases, each fatal on any error:
    (every bias drawn anew, distinct per channel, as trained weights have
    them; initialisation zeroes most of them), written as a JAX-layout checkpoint and served through
    ``serving.main(["infer", ...])`` (PLY in, PLY out), then three B=64
-   requests through ``make_serving_fn``. The trunk kernel must launch once
-   per request; equal seeds give equal outputs, another seed another
-   output; the bf16 output is held to the fp32 plain path on the same
-   weights and ball points (relative L2 <= 0.1).
+   requests through ``make_serving_fn``. The trunk kernel and the decode
+   kernel K10 must launch once per request; equal seeds give equal outputs,
+   another seed another output; the bf16 output is held to the fp32 path
+   (K10's fp32 kernel, no K4) on the same weights and ball points (relative
+   L2 <= 0.1).
 5. serving throughput: bf16 and fp32 completion at B=256 in clouds/s: all
    clouds over all the synchronised time of the timed windows, with each
    window's rate beside it.
@@ -52,8 +54,9 @@ Phases, each fatal on any error:
    gt 2048). fp32: the first step's gradients through the kernels against
    the plain Chamfer's on the same injected noise and ball points (relative
    L2 <= 1e-3), then 5 train steps (K1 twice per step) and a val step at
-   B=60 (K3 once); bf16: 3 train steps and a val step (K4 twice, K3 once).
-   Losses finite, parameters changed; train and val step times at B=64.
+   B=60 (K3 once, K10 once); bf16: 3 train steps and a val step (K4 twice,
+   K3 once, K10 once); train steps launch no K10. Losses finite, parameters
+   changed; train and val step times at B=64.
 
 9. EMD kernels vs plain: K6 (``match_cost_fwd_kernel``) and K7
    (``match_cost_bwd_kernel``, ``ops/emd.py``) against their plain versions
@@ -77,8 +80,9 @@ Phases, each fatal on any error:
    category that the smoke writes itself; only ``mode``, ``dataset.path``,
    ``dataset.classes`` and ``results_root`` are overridden. Metrics must be
    finite; K6 and K3 must launch once per 512-pair dispatch, and
-   ``compute_mmd_tmd_uhd`` must launch K3 as its calls require. The wall time
-   of each experiment and of its parts is printed.
+   ``compute_mmd_tmd_uhd`` must launch K3 as its calls require; K10 launches
+   once per inference forward of the model (at least once each). The wall
+   time of each experiment and of its parts is printed.
 
 12. trunk-argmax kernel K8 vs plain (``ops/trunk_pool.py::trunk_pooled_argmax``)
    on the served model's encoder at B=64 and B=256 (N=1024), ragged clouds,
@@ -104,7 +108,7 @@ Phases, each fatal on any error:
    ``HPCD_TRUNK_FUSED_FWD=1``), 2 epochs each, then a relaunch with max_epoch
    3 that must resume at epoch 3; files written, epoch times and ms per step,
    launches (K1 twice a train step, K3 once a val batch, K8 twice a bf16 train
-   step, K4 twice a bf16 val batch).
+   step, K4 twice a bf16 val batch, K10 once per inference forward).
 15. fused train step: 3 steps of ``make_fused_train_step`` (K11 once a step)
    against ``make_train_step`` at full width, B=64, bf16, from the same
    weights and draws: step-0 losses within 1e-6, all within 1e-2.
@@ -129,14 +133,20 @@ Phases, each fatal on any error:
    gradient of 3 loss 3x the gradient; against the plain autograd by phase
    7's near-tie rules. Timed beside phase 7's route, K3 (``ratio_to_k3``)
    and the plain version, with the share of the bound reached.
-18. K10 (``decode_batch``) on the served model's own flat weights (the
-   hypernetwork's output for B=256 and B=64 requests, bf16 and fp32) and
-   ball points, N=2048, through ``ops.decode_batch`` (one launch each):
-   within 2e-5 (fp32) or 0.05 (bf16) of the output's largest entry of the
-   plain version and of the model's ``bmm`` chain, with the bf16 steps to
-   the plain version printed; the JAX tests' 8 channel/bias cases in fp32,
-   elementwise within 2e-5. Timed beside the ``bmm`` chain and the plain
-   version.
+18. K10 (``decode_batch``; bf16 on the tensor cores, ``decode_batch_tc.cu``,
+   fp32 on the CUDA cores, ``decode_batch.cu``) on the served model's own
+   flat weights (the hypernetwork's output for B=256 and B=64 requests,
+   bf16 and fp32) and ball points, N=2048, through ``ops.decode_batch``
+   (one launch each): within 2e-5 (fp32) or 0.05 (bf16) of the output's
+   largest entry of the plain version and of the model's ``bmm`` chain,
+   with the bf16 steps to the plain version printed; the JAX tests' 8
+   channel/bias cases at B=3, N=64 in fp32 (elementwise within 2e-5) and in
+   bf16 (within one bf16 step or 2e-2 of the largest entry), and rows that
+   start 2-byte aligned (odd samples). At B=64 and B=256 in both dtypes:
+   the kernel's device time (launches queued behind a sleep, so no host
+   gap counts) and its time per call through the wrapper, the ``bmm``
+   chain's and the plain version's, with the share of the bound reached
+   and the ratio to the chain.
 
 19. export: the served chair model exported on the card
    (``serving.export_completion``) in bf16 and fp32 at B=64 and B=256,
@@ -144,19 +154,20 @@ Phases, each fatal on any error:
    artifact's completion within 2e-2 (bf16, K4's bound) or 1e-5 (fp32) of
    the output's scale of ``make_serving_fn``'s for the same seed and noise,
    equal seeds equal, another seed another; the bf16 graph holds the op
-   ``hyperpocket.trunk_pooled`` (fp32 does not), the export launches no K4
-   and each bf16 artifact call one. The artifact and ``make_serving_fn``
+   ``hyperpocket.trunk_pooled`` (fp32 does not) and both hold
+   ``hyperpocket.decode_batch``; the export launches no K4 and no K10, each
+   bf16 artifact call one K4, each artifact call one K10. The artifact and ``make_serving_fn``
    timed in clouds/s at B=64 and B=256 (nothing is claimed for them).
 20. serving CLI: on the bf16 chair checkpoint and phase 14's 3D-EPN corpus,
    ``serving.main`` runs ``export`` (sidecar keys), ``infer --artifact``
-   (6 PLYs of 2048 finite points, K4 once), ``fit-prior`` (a finite prior
-   of the noise size) and ``infer --latent-prior`` (6 PLYs); a prior of
-   another dim is refused before any completion.
+   (6 PLYs of 2048 finite points, K4 and K10 once), ``fit-prior`` (a finite
+   prior of the noise size) and ``infer --latent-prior`` (6 PLYs); a prior
+   of another dim is refused before any completion.
 21. HyperRec: ``settings/config_completion.json``'s model at full width,
    fp32 with TF32 off, B=66 partial and gt clouds of 2048 points: the first
    step's gradients through the kernels against the plain Chamfer's
    (relative L2 <= 1e-3, K1 twice), then 3 train steps (K1 twice a step, no
-   K3, no K4) and a val step at B=10 (K3 once), ms per step. Where ``h5py``
+   K3, K4 or K10) and a val step at B=10 (K3 once, K10 once), ms per step. Where ``h5py``
    is installed, a synthetic Completion3D ``.list``/``.h5`` tree is read
    through ``get_datasets``; where it is not, one line says so.
    Phases 19-21 print their wall time.
@@ -180,6 +191,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import io
 import json
@@ -327,11 +339,53 @@ def clouds_per_s(fn, batch: int, iters: int = 10, windows: int = 5, warmup: int 
             "window_clouds_per_s": [batch * iters / s for s in seconds]}
 
 
+def device_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> float:
+    """Median over windows of the per-call device time, the calls queued
+    behind a sleep kernel so that the host's time per call leaves no gap
+    between them (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz: longer than queueing the calls
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def inference_forwards():
+    """The compute dtypes of the ``FullModel.apply(training=False)`` calls made
+    inside the block: each decodes through K10 once (fp32 and bf16)."""
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+
+    inner = FullModel.apply
+    calls = []
+
+    def apply(self, *args, training=True, **kwargs):
+        if not training:
+            calls.append(self.compute_dtype)
+        return inner(self, *args, training=training, **kwargs)
+
+    FullModel.apply = apply
+    try:
+        yield calls
+    finally:
+        FullModel.apply = inner
+
+
 def ptxas_check(log: Path, kernel: str, what: str) -> list:
     """ptxas' registers, shared memory and spills of the two entry functions
     whose names hold ``kernel``: K4's and K8's instantiations of
-    ``trunk_pool_kernel``, or the copies of ``nn_fused_kernel`` in K5's and
-    K9's sources. Spills fail the run."""
+    ``trunk_pool_kernel``, the copies of ``nn_fused_kernel`` in K5's and
+    K9's sources, or K10's two instantiations of ``decode_batch_tc_kernel``.
+    Spills fail the run."""
     from hyperpocket_tpu_torch.ops import _build
 
     report = _build.ptxas_report(log.read_text(), kernel)
@@ -603,10 +657,25 @@ def write_checkpoint(config: dict, model, tmp: Path) -> Path:
     return path
 
 
+def plain_inference(model, existing, noise, ball_points):
+    """The model's inference forward with its decode on the plain route, the
+    ``bmm`` chain of ``models/target_network.py``, where ``apply`` would
+    launch K10: the reference that bf16 serving is held to."""
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+
+    check(model.compute_torch_dtype == torch.float32, "the plain reference runs in fp32")
+    with torch.no_grad():
+        latent, _, _ = model._get_latent(existing, None, None, False, noise, None)
+        return batched_target_network_forward(
+            model.hyper_network(latent), ball_points, list(model.target_layer_out_channels),
+            model.target_use_bias)
+
+
 def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
     """The main path: infer CLI + three serving requests, with launch counts."""
     from hyperpocket_tpu_torch import serving
     from hyperpocket_tpu_torch.data.plyio import load_ply, save_ply
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
 
@@ -625,16 +694,18 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
                         generator=torch.Generator().manual_seed(2)) * 0.13
     existing, noise = existing.to(device), noise.to(device)
 
-    trunk_pooled.launches = 0
+    trunk_pooled.launches = decode_batch.launches = 0
     t0 = time.perf_counter()
     rc = serving.main(["infer", "--config", str(cfg_path), "--inputs", *plys,
                        "--out-dir", str(out_dir), "--samples", "2", "--noise-std", "0.13"])
     check(rc == 0, f"infer exited {rc}")
     infer_launches = trunk_pooled.launches
+    infer_decodes = decode_batch.launches
     f = serving.make_serving_fn(model, num_output_points=N_OUT, device=device)
     outs = [f(existing, noise, seed) for seed in (11, 11, 12)]
     torch.cuda.synchronize()
     launches = trunk_pooled.launches
+    decodes = decode_batch.launches
     slice_s = time.perf_counter() - t0
 
     written = sorted(out_dir.glob("*.ply"))
@@ -650,6 +721,8 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
     check(not torch.equal(outs[0], outs[2]), "another seed gave the same completion")
     check(infer_launches == 1, f"infer launched the trunk kernel {infer_launches} times, not 1")
     check(launches == 4, f"4 requests launched the trunk kernel {launches} times")
+    check(infer_decodes == 1 and decodes == 4,
+          f"4 requests launched K10 {decodes} times ({infer_decodes} in infer)")
 
     pts = generate_target_network_input_batch(
         model.target_network_input, torch.Generator(device=device).manual_seed(5), 1e9,
@@ -657,13 +730,13 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
     served = model.serving_params().to(device)
     got = served.apply(existing, None, None, 1e9, num_output_points=N_OUT, training=False,
                        noise=noise, ball_points=pts)
-    want = model32.to(device).apply(existing, None, None, 1e9, num_output_points=N_OUT,
-                                    training=False, noise=noise, ball_points=pts)
+    want = plain_inference(model32.to(device), existing, noise, pts)
     rel_l2 = ((got - want).norm() / want.norm()).item()
-    print(f"slice: bf16 vs fp32 plain relative L2 {rel_l2!r} (limit {REL_L2_TOL})")
+    print(f"slice: bf16 serving vs the fp32 plain path (bmm chain decode) relative L2 "
+          f"{rel_l2!r} (limit {REL_L2_TOL})")
     check(rel_l2 <= REL_L2_TOL, f"bf16 vs fp32 relative L2 {rel_l2} > {REL_L2_TOL}")
-    return {"launches": launches, "infer_launches": infer_launches, "rel_l2": rel_l2,
-            "slice_s": slice_s, "plys": len(written)}
+    return {"launches": launches, "infer_launches": infer_launches, "decode_launches": decodes,
+            "rel_l2": rel_l2, "slice_s": slice_s, "plys": len(written)}
 
 
 def throughput(model, model32, device) -> dict:
@@ -886,6 +959,7 @@ def first_step_grads(model, params, batch, balls, loss_fn) -> torch.Tensor:
 def drive_training(config: dict, model32, device) -> dict:
     """The training slice: train steps and val steps in fp32 and bf16, with launch counts."""
     from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
@@ -896,7 +970,7 @@ def drive_training(config: dict, model32, device) -> dict:
     trainer.set_matmul_precision(tr.get("matmul_precision", "highest"))
     loss_coef = float(tr["loss_coef"])
     out = {}
-    kernels = (nn_one_direction, nn_min_fused, trunk_pooled)
+    kernels = (nn_one_direction, nn_min_fused, trunk_pooled, decode_batch)
 
     def reset():
         for k in kernels:
@@ -904,7 +978,8 @@ def drive_training(config: dict, model32, device) -> dict:
 
     def counts():
         return {"nn_one_direction": nn_one_direction.launches,
-                "nn_min_fused": nn_min_fused.launches, "trunk_pool": trunk_pooled.launches}
+                "nn_min_fused": nn_min_fused.launches, "trunk_pool": trunk_pooled.launches,
+                "decode_batch": decode_batch.launches}
 
     for dtype, steps in (("float32", 5), ("bfloat16", 3)):
         model = copy.deepcopy(model32)
@@ -958,10 +1033,11 @@ def drive_training(config: dict, model32, device) -> dict:
               f"{dtype}: reconstruction {tuple(rec.shape)} {rec.dtype}")
         check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
               f"{dtype}: a parameter with a gradient did not change")
-        check(train_counts == {"nn_one_direction": 2 * steps, "nn_min_fused": 0, "trunk_pool": 0},
+        check(train_counts == {"nn_one_direction": 2 * steps, "nn_min_fused": 0, "trunk_pool": 0,
+                               "decode_batch": 0},
               f"{dtype}: {steps} train steps launched {train_counts}")
         want_val = {"nn_one_direction": 0, "nn_min_fused": 1,
-                    "trunk_pool": 2 if dtype == "bfloat16" else 0}
+                    "trunk_pool": 2 if dtype == "bfloat16" else 0, "decode_batch": 1}
         check(val_counts == want_val, f"{dtype}: the val step launched {val_counts}")
 
         res.update(losses=losses, val_loss=val_loss.item(), train_launches=train_counts,
@@ -1173,6 +1249,7 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
     """``cli.main`` in experiments mode for the two eval configs, with launch counts."""
     from hyperpocket_tpu_torch import cli
     from hyperpocket_tpu_torch.convert import save_jax_npz
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.emd import match_cost_bwd_kernel, match_cost_fwd_kernel
     from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
@@ -1180,7 +1257,7 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
 
     kernels = {"emd_match_cost": match_cost_fwd_kernel, "emd_match_cost_grad": match_cost_bwd_kernel,
                "nn_min_fused": nn_min_fused, "nn_one_direction": nn_one_direction,
-               "trunk_pool": trunk_pooled}
+               "trunk_pool": trunk_pooled, "decode_batch": decode_batch}
     # JSD's entropy comes from scipy.stats, whose first import is process
     # set-up of a few seconds; it is timed here on its own, not inside the
     # first experiment that needs it
@@ -1206,10 +1283,12 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        ctx = cli.main(config, device=device)
+        with inference_forwards() as forwards:
+            ctx = cli.main(config, device=device)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
+        check(len(forwards) > 0, f"{cfg_name}: the experiments ran no inference forward")
         results = Path(get_results_dir_path(config, "experiments"))
         check(ctx.epoch == 1 and ctx.model.compute_dtype == "float32",
               f"{cfg_name}: restored epoch {ctx.epoch}, compute dtype {ctx.model.compute_dtype}")
@@ -1225,7 +1304,8 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
             # 16 objects x 16 completions x 16 missing halves, at 512 pairs a dispatch
             dispatches = -(-EVAL_OBJECTS ** 3 // 512)
             want = {"emd_match_cost": dispatches, "emd_match_cost_grad": 0,
-                    "nn_min_fused": dispatches, "nn_one_direction": 0, "trunk_pool": 0}
+                    "nn_min_fused": dispatches, "nn_one_direction": 0, "trunk_pool": 0,
+                    "decode_batch": len(forwards)}
             res["metrics"] = cat
             res["dispatches"] = dispatches
         else:
@@ -1239,7 +1319,8 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
             # MMD: 8 gt clouds x 64 completions a call; UHD and TMD one call each
             mmd_calls = -(-EVAL_OBJECTS // 8) * -(-len(recs) // 64)
             want = {"emd_match_cost": 0, "emd_match_cost_grad": 0,
-                    "nn_min_fused": mmd_calls + 2, "nn_one_direction": 0, "trunk_pool": 0}
+                    "nn_min_fused": mmd_calls + 2, "nn_one_direction": 0, "trunk_pool": 0,
+                    "decode_batch": len(forwards)}
             res["metrics"] = metrics
         check(launches == want, f"{cfg_name}: launches {launches}, expected {want}")
         print(f"experiments {cfg_name}: wall {wall_s!r} s, parts (s) {json.dumps(ctx.timings)}, "
@@ -1285,12 +1366,14 @@ def drive_cli_training(device, tmp: Path) -> dict:
     import importlib.util
 
     from hyperpocket_tpu_torch import cli
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
     from hyperpocket_tpu_torch.train import trainer as trainer_mod
 
     kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
-               "trunk_pool": trunk_pooled, "trunk_pool_argmax": trunk_pooled_argmax}
+               "trunk_pool": trunk_pooled, "trunk_pool_argmax": trunk_pooled_argmax,
+               "decode_batch": decode_batch}
     data = tmp / "train_data"
     t0 = time.perf_counter()
     write_train_corpus(data)
@@ -1333,11 +1416,12 @@ def drive_cli_training(device, tmp: Path) -> dict:
                     os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
                 try:
                     t = time.perf_counter()
-                    if plots:
-                        trainer = cli.main(config, device=device)
-                    else:
-                        trainer = trainer_mod.Trainer(config, device=device)
-                        trainer.run(plot_samples=False)
+                    with inference_forwards() as forwards:
+                        if plots:
+                            trainer = cli.main(config, device=device)
+                        else:
+                            trainer = trainer_mod.Trainer(config, device=device)
+                            trainer.run(plot_samples=False)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t
                 finally:
@@ -1365,7 +1449,10 @@ def drive_cli_training(device, tmp: Path) -> dict:
                 want = {"nn_one_direction": 2 * sum(steps),
                         "nn_min_fused": val_batches * len(epochs),
                         "trunk_pool": 2 * val_batches * len(bf16_epochs),
-                        "trunk_pool_argmax": 2 * steps[0] * len(bf16_epochs)}
+                        "trunk_pool_argmax": 2 * steps[0] * len(bf16_epochs),
+                        "decode_batch": len(forwards)}
+                check(len(forwards) >= val_batches * len(epochs),
+                      f"{cfg_name}: {len(forwards)} inference forwards in {len(epochs)} epochs")
                 check(launches == want, f"{cfg_name}: launches {launches}, expected {want}")
                 check(trainer.model.compute_dtype == "float32",
                       f"{cfg_name}: ends in {trainer.model.compute_dtype}")
@@ -1687,7 +1774,7 @@ def decode_vs_plain(model, model32, device) -> dict:
                 net.target_network_input, gen, 1e9, batch, N_OUT).to(cd)
             inputs[f"{dtype}_B{batch}"] = (flat, balls)
         del net
-    ops.decode_batch.launches = 0  # the path: each request's decode through the op
+    ops.decode_batch.launches = 0  # each request's decode through the op
     outs = {name: ops.decode_batch(flat, balls, channels, use_bias)
             for name, (flat, balls) in inputs.items()}
     torch.cuda.synchronize()
@@ -1721,45 +1808,67 @@ def decode_vs_plain(model, model32, device) -> dict:
         res["cases"][name] = r
         print(f"K10 {name}: {json.dumps(r)}")
 
-    small_err = 0.0  # tests/test_pallas_decoder.py's cases, fp32, B=3, N=64
+    # rows that start 2-byte aligned: the served bf16 request from its second
+    # and fourth sample on (a row is 38,022 bytes, so they start 6 and 2 bytes
+    # past a 16-byte boundary); each point's arithmetic is the same in any block
+    flat, balls = inputs[f"bf16_B{SERVE_BATCH}"]
+    for first in (1, 3):
+        got = ops.decode_batch(flat[first:], balls[first:], channels, use_bias)
+        check(flat[first:].data_ptr() % 16 != 0
+              and torch.equal(got, outs[f"bf16_B{SERVE_BATCH}"][first:]),
+              f"K10 bf16 on rows from sample {first} differs from the whole batch's")
+
+    # tests/test_pallas_decoder.py's cases at B=3, N=64: fp32 elementwise within
+    # 2e-5, bf16 within one bf16 step or 2e-2 of the largest entry (the card tests')
+    small_err = {"fp32": 0.0, "bf16": 0.0}
     for small in ((32, 64, 128, 64), (8, 16), (16,), ()):
         for bias in (True, False):
             w = target_weight_count(list(small), bias)
             flat = torch.randn((3, w), generator=gen, device=device) * 0.2
             pts = torch.randn((3, 64, 3), generator=gen, device=device) * 0.5
-            got = ops.decode_batch(flat, pts, small, bias)
-            want = decode_batch_reference(flat, pts, small, bias)
-            err = (got - want).abs()
-            check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
-                  f"K10 channels {small} bias {bias}: off the plain version by {err.max().item()}")
-            small_err = max(small_err, err.max().item())
-    print(f"K10 small cases: max_abs_err {small_err!r}")
+            for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                got = ops.decode_batch(flat.to(dtype), pts.to(dtype), small, bias).float()
+                want = decode_batch_reference(flat.to(dtype), pts.to(dtype), small, bias).float()
+                err = (got - want).abs()
+                lim = (2e-5 + 2e-5 * want.abs() if name == "fp32"
+                       else torch.maximum(_bf16_step(want), 2e-2 * want.abs().max()))
+                check(bool((err <= lim).all()), f"K10 {name} channels {small} bias {bias}: "
+                      f"off the plain version by {err.max().item()}")
+                small_err[name] = max(small_err[name], err.max().item())
+    print(f"K10 small cases: max_abs_err {json.dumps(small_err)}")
 
     macs = sum(i * o for i, o in zip((3, *channels), (*channels, 3)))
     res["times"] = {}
-    for name in (f"bf16_B{BENCH_BATCH}", f"fp32_B{BENCH_BATCH}", f"bf16_B{SERVE_BATCH}"):
-        flat, balls = inputs[name]
+    for name, (flat, balls) in inputs.items():
         size = balls.element_size()
         ops_ = 2 * macs * balls.shape[0] * balls.shape[1]
-        t = {"ms": cuda_ms(lambda: ops.decode_batch(flat, balls, channels, use_bias)),
+
+        def kernel():
+            return ops.decode_batch(flat, balls, channels, use_bias)
+
+        def chain():  # the model's training decode: cuBLAS bmm + bias add + ReLU per layer
+            return batched_target_network_forward(flat, balls, list(channels), use_bias)
+
+        # ms and chain_ms by CUDA events as every kernel's row; the *_device_ms
+        # beside them with the calls queued behind a sleep, without host gaps
+        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+             "chain_ms": cuda_ms(chain, iters=10),
+             "chain_device_ms": device_ms(chain, iters=10),
              "plain_ms": cuda_ms(lambda: decode_batch_reference(flat, balls, channels, use_bias),
                                  iters=3),
-             # the model's own decode: cuBLAS bmm + bias add + ReLU per layer
-             "library_ms": cuda_ms(lambda: batched_target_network_forward(
-                 flat, balls, list(channels), use_bias), iters=10),
-             # the same products on the CUDA cores in fp32, K10's route
-             "cuda_core_bound_ms": 1e3 * ops_ / FP32_FLOPS,
+             # bf16 on the tensor cores, fp32 on the CUDA cores
              **bound(size * (flat.numel() + 2 * balls.numel()),
                      ops_ / (BF16_FLOPS if size == 2 else FP32_FLOPS))}
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
+        t["ratio_to_chain"] = t["ms"] / t["chain_ms"]
         res["times"][name] = t
         print(f"K10 timing {name}: {json.dumps(t)}")
-    res["max_abs_err"] = res["cases"][f"bf16_B{BENCH_BATCH}"]["max_abs_err"]
     return res
 
 
-def _graph_has_trunk_op(data: bytes) -> bool:
-    targets = {str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes}
-    return "hyperpocket.trunk_pooled.default" in targets
+def _graph_ops(data: bytes) -> set:
+    return {str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes}
 
 
 def drive_export(model, model32, device, tmp: Path) -> dict:
@@ -1767,6 +1876,7 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
     saved, loaded back and held to ``make_serving_fn``; both timed at B=64
     and B=256."""
     from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
 
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
@@ -1777,7 +1887,7 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
             existing = torch.randn((batch, N_EXISTING, 3), generator=gen, device=device) * 0.3
             noise = torch.randn((batch, model.get_noise_size()), generator=gen,
                                 device=device) * 0.13
-            trunk_pooled.launches = 0
+            trunk_pooled.launches = decode_batch.launches = 0
             t0 = time.perf_counter()
             data = serving.export_completion(m, batch=batch, n_existing=N_EXISTING,
                                              num_output_points=N_OUT, device=device)
@@ -1787,20 +1897,26 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
             t0 = time.perf_counter()
             f = serving.load_completion(path.read_bytes())
             load_s = time.perf_counter() - t0
-            check(trunk_pooled.launches == 0, f"{name}: the export launched K4")
+            check(trunk_pooled.launches == 0 and decode_batch.launches == 0,
+                  f"{name}: the export launched K4 or K10")
             direct = serving.make_serving_fn(m, num_output_points=N_OUT, device=device)
             row = {"export_s": export_s, "load_s": load_s, "bytes": len(data)}
             if batch == SERVE_BATCH:
-                has_op = _graph_has_trunk_op(data)
+                graph = _graph_ops(data)
+                has_op = "hyperpocket.trunk_pooled.default" in graph
                 check(has_op == (name == "bf16"),
                       f"{name}: hyperpocket.trunk_pooled in the exported graph: {has_op}")
+                check("hyperpocket.decode_batch.default" in graph,
+                      f"{name}: no hyperpocket.decode_batch in the exported graph")
                 want = direct(existing, noise, 31)
-                trunk_pooled.launches = 0  # the artifact's path: three requests
+                # the artifact's path: three requests
+                trunk_pooled.launches = decode_batch.launches = 0
                 got = [f(existing, noise, seed) for seed in (31, 31, 32)]
                 torch.cuda.synchronize()
-                launches = trunk_pooled.launches
+                launches, decodes = trunk_pooled.launches, decode_batch.launches
                 check(launches == (3 if name == "bf16" else 0),
                       f"{name}: 3 artifact calls launched K4 {launches} times")
+                check(decodes == 3, f"{name}: 3 artifact calls launched K10 {decodes} times")
                 check(got[0].shape == (batch, N_OUT, 3) and got[0].dtype == torch.float32
                       and bool(torch.isfinite(got[0]).all()), f"{name}: artifact output")
                 check(torch.equal(got[0], got[1]) and not torch.equal(got[0], got[2]),
@@ -1808,9 +1924,10 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
                 err = ((got[0] - want).abs().max() / want.abs().max()).item()
                 print(f"export {name}: artifact vs make_serving_fn, max |diff| / max |out| "
                       f"{err!r} (limit {tol}); graph holds hyperpocket.trunk_pooled: {has_op}; "
-                      f"K4 launches in 3 artifact calls: {launches}")
+                      f"K4 / K10 launches in 3 artifact calls: {launches} / {decodes}")
                 check(err <= tol, f"{name}: artifact vs make_serving_fn {err} > {tol}")
-                row.update(max_rel_err=err, launches=launches, has_trunk_op=has_op)
+                row.update(max_rel_err=err, launches=launches, decode_launches=decodes,
+                           has_trunk_op=has_op)
             for tag, fn in (("artifact", f), ("serving_fn", direct)):
                 rate = clouds_per_s(lambda s, fn=fn: fn(existing, noise, s), batch)
                 row[f"{tag}_clouds_per_s"] = rate["clouds_per_s"]
@@ -1834,6 +1951,7 @@ def drive_serving_cli(model, device, tmp: Path) -> dict:
         load_latent_gaussian,
         save_latent_gaussian,
     )
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
 
     data = tmp / "train_data"
@@ -1854,14 +1972,17 @@ def drive_serving_cli(model, device, tmp: Path) -> dict:
     out = {}
 
     def run(name, argv, want_launches):
-        trunk_pooled.launches = 0
+        """K4 and K10 must each launch ``want_launches`` times."""
+        trunk_pooled.launches = decode_batch.launches = 0
         t0 = time.perf_counter()
         rc = serving.main(argv)
         torch.cuda.synchronize()
-        out[name] = {"s": time.perf_counter() - t0, "launches": trunk_pooled.launches}
+        out[name] = {"s": time.perf_counter() - t0, "launches": trunk_pooled.launches,
+                     "decode_launches": decode_batch.launches}
         check(rc == 0, f"serving {name} exited {rc}")
-        check(trunk_pooled.launches == want_launches,
-              f"serving {name}: K4 launched {trunk_pooled.launches} times, not {want_launches}")
+        check(trunk_pooled.launches == want_launches == decode_batch.launches,
+              f"serving {name}: K4 launched {trunk_pooled.launches} times and K10 "
+              f"{decode_batch.launches}, not {want_launches}")
 
     def completions(out_dir: Path) -> int:
         written = sorted(out_dir.glob("*.ply"))
@@ -1933,6 +2054,7 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     first-step gradients through the kernels against the plain Chamfer, 3
     train steps (K1 twice a step) and a val step at B=10 (K3 once)."""
     from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
@@ -1955,7 +2077,7 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     partial = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
     gt = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
     kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
-               "trunk_pool": trunk_pooled}
+               "trunk_pool": trunk_pooled, "decode_batch": decode_batch}
 
     def reset():
         for k in kernels.values():
@@ -1977,8 +2099,8 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
     print(f"hyperrec: first-step gradients, kernels vs plain Chamfer, relative L2 {rel!r} "
           f"(limit {STEP_GRAD_REL_L2}); launches {grad_counts}")
-    check(grad_counts == {"nn_one_direction": 2, "nn_min_fused": 0, "trunk_pool": 0},
-          f"hyperrec gradient check launched {grad_counts}")
+    check(grad_counts == {"nn_one_direction": 2, "nn_min_fused": 0, "trunk_pool": 0,
+                          "decode_batch": 0}, f"hyperrec gradient check launched {grad_counts}")
     check(rel <= STEP_GRAD_REL_L2, f"hyperrec first-step gradient relative L2 {rel}")
 
     before = [p.detach().clone() for p in params]
@@ -2002,10 +2124,10 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     check(rec.shape == (batch, N_OUT, 3), f"hyperrec reconstruction {tuple(rec.shape)}")
     check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
           "hyperrec: a parameter with a gradient did not change")
-    check(train_counts == {"nn_one_direction": 6, "nn_min_fused": 0, "trunk_pool": 0},
-          f"hyperrec: 3 train steps launched {train_counts}")
-    check(val_counts == {"nn_one_direction": 0, "nn_min_fused": 1, "trunk_pool": 0},
-          f"hyperrec: the val step launched {val_counts}")
+    check(train_counts == {"nn_one_direction": 6, "nn_min_fused": 0, "trunk_pool": 0,
+                           "decode_batch": 0}, f"hyperrec: 3 train steps launched {train_counts}")
+    check(val_counts == {"nn_one_direction": 0, "nn_min_fused": 1, "trunk_pool": 0,
+                         "decode_batch": 1}, f"hyperrec: the val step launched {val_counts}")
     out.update(first_step_grad_rel_l2=rel, losses=losses, val_loss=val_loss.item(),
                train_launches=train_counts, val_launches=val_counts)
     out["train_step"] = step_ms(lambda i: train_step(partial, None, gt, gen, 1.0, N_OUT))
@@ -2160,6 +2282,7 @@ def main(argv=None) -> int:
     log = Path(lib._name).parent / _build.LOG_NAME
     ptxas_check(log, "trunk_pool_kernel", "trunk")
     ptxas_check(log, "nn_fused_kernel", "fused NN sweep")
+    ptxas_check(log, "decode_batch_tc_kernel", "bf16 decode")
 
     config, model = build_model("bfloat16")
     model32 = copy.deepcopy(model)
@@ -2247,8 +2370,15 @@ def main(argv=None) -> int:
               k5["launches"]["nn_fused_planes"], k5["max_abs_err"], k5["times"]["B64_1024x2048"]),
         entry("chamfer_loss_grad", "chamfer_loss_grad.cu", "hyperpocket_tpu/ops/pallas_nn.py:580",
               k9["launches"], k9["max_abs_err"], k9["times"]["B64_2048x2048"]),
-        entry("decode_batch", "decode_batch.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
-              k10["launches"], k10["max_abs_err"], k10["times"][f"bf16_B{BENCH_BATCH}"]),
+        # K10: bf16 (tensor cores) on the bf16 serving path, fp32 (CUDA cores) on the fp32
+        # val step's
+        entry("decode_batch", "decode_batch_tc.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
+              sl["decode_launches"], k10["cases"][f"bf16_B{BENCH_BATCH}"]["max_abs_err"],
+              k10["times"][f"bf16_B{BENCH_BATCH}"], library_key="chain_ms"),
+        entry("decode_batch_fp32", "decode_batch.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
+              fp32["val_launches"]["decode_batch"],
+              k10["cases"][f"fp32_B{BENCH_BATCH}"]["max_abs_err"],
+              k10["times"][f"fp32_B{BENCH_BATCH}"], library_key="chain_ms"),
     ]
     print(f"SM clock, power, temperature at the end: {clock_line()}")
     print(card)

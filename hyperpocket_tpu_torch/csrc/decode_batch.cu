@@ -1,21 +1,19 @@
 // Per-sample target-network decode from the hypernetwork's flat weights,
-// fused, for Hopper (sm_90a).
+// fused, for Hopper (sm_90a): the fp32 case, on the CUDA cores.
 //
 // Replaces the TPU kernel hyperpocket_tpu/ops/pallas_decoder.py::decode_batch
-// (_decode_kernel). Each sample b has its own MLP 3 -> C1 -> ... -> Ck -> 3,
+// (_decode_kernel) for fp32 points; decode_batch_tc.cu takes bf16 points on
+// the tensor cores. Each sample b has its own MLP 3 -> C1 -> ... -> Ck -> 3,
 // sliced from its row of the flat weight vector (per layer a row-major
 // (out, in) block, then the bias when there is one), run on its N points:
 //   layer 0:  acc = bias + x0 w0 + x1 w1 + x2 w2, in fp32;
 //   others:   acc = h . w in fp32, then + bias;
-// ReLU after every layer but the last, and each layer's output rounded once
-// to the points' dtype (fp32 or bf16), as the TPU kernel does.
+// ReLU after every layer but the last, as the TPU kernel does.
 //
 // What bounds it on the H100: arithmetic. At the chair widths a point takes
-// 18,720 multiply-adds for 12 bytes in and 12 out, so the bytes are nothing.
-// This first version runs the products as fp32 FMAs on the CUDA cores for
-// both dtypes (bf16 operands are widened, and their products are exact in
-// fp32); the bf16 tensor cores would be 15x faster at their peak, which is
-// for a later version. The design keeps every activation on chip:
+// 18,720 multiply-adds for 12 bytes in and 12 out, so the bytes are nothing;
+// the products run as fp32 FMAs on the CUDA cores. The design keeps every
+// activation on chip:
 //   * one block per (sample, tile of 512 points); the sample's weights and
 //     biases go to shared memory once, transposed to (in, out) with each
 //     row padded to a multiple of 8, as fp32 (77 KB at the chair widths);
@@ -30,10 +28,7 @@
 // Widths whose weights and buffers need more shared memory than a block may
 // have are refused (the wrapper raises).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -97,39 +92,26 @@ bool make_layout(const int* widths, const int n_layers, const bool use_bias, Lay
   return true;
 }
 
-__device__ __forceinline__ float to_float(const float v) { return v; }
-__device__ __forceinline__ float to_float(const bf16 v) { return __bfloat162float(v); }
-
-// the value as the dtype T holds it (round to nearest even for bf16)
-__device__ __forceinline__ float rounded(const float v, const float*) { return v; }
-__device__ __forceinline__ float rounded(const float v, const bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store(float* p, const float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, const float v) { *p = __float2bfloat16_rn(v); }
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_batch_kernel(const T* __restrict__ flat, const T* __restrict__ points, T* __restrict__ out,
-                    const int n, const int tiles, const Layout L) {
+decode_batch_kernel(const float* __restrict__ flat, const float* __restrict__ points,
+                    float* __restrict__ out, const int n, const int tiles, const Layout L) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x % tiles;
-  const T* row = flat + (size_t)b * L.flat;
+  const float* row = flat + (size_t)b * L.flat;
 
   // the sample's weights, transposed to (in, pad) and zero-padded, and biases
   for (int li = 0; li < L.n_layers; ++li) {
     const int in = L.in[li], nout = L.out[li], pad = L.pad[li];
     float* w = sm + L.w_dst[li];
     for (int e = threadIdx.x; e < nout * in; e += blockDim.x)  // coalesced in the row
-      w[(e % in) * pad + e / in] = to_float(row[L.w_src[li] + e]);
+      w[(e % in) * pad + e / in] = row[L.w_src[li] + e];
     for (int e = threadIdx.x; e < in * (pad - nout); e += blockDim.x)
       w[(e / (pad - nout)) * pad + nout + e % (pad - nout)] = 0.f;
     for (int o = threadIdx.x; o < pad; o += blockDim.x) {
       const bool given = o < nout && L.b_src[li] >= 0;
-      sm[L.b_dst[li] + o] = given ? to_float(row[L.b_src[li] + o]) : 0.f;
+      sm[L.b_dst[li] + o] = given ? row[L.b_src[li] + o] : 0.f;
     }
   }
 
@@ -141,7 +123,7 @@ decode_batch_kernel(const T* __restrict__ flat, const T* __restrict__ points, T*
     float* xs = sm + L.buf[0];
     for (int e = threadIdx.x; e < 3 * kPoints; e += blockDim.x) {
       const int i = p0 + e / 3;
-      const float v = i < n ? to_float(points[3 * ((size_t)b * n + i) + e % 3]) : 0.f;
+      const float v = i < n ? points[3 * ((size_t)b * n + i) + e % 3] : 0.f;
       xs[(e % 3) * kPoints + e / 3] = v;
     }
     __syncthreads();
@@ -178,12 +160,10 @@ decode_batch_kernel(const T* __restrict__ flat, const T* __restrict__ points, T*
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          v0 = rounded(v0, out);
-          v1 = rounded(v1, out);
           if (final_layer) {
             const int i0 = p0 + pair, i1 = p0 + pair + kPairs;
-            if (i0 < n) store(out + 3 * ((size_t)b * n + i0) + c, v0);
-            if (i1 < n) store(out + 3 * ((size_t)b * n + i1) + c, v1);
+            if (i0 < n) out[3 * ((size_t)b * n + i0) + c] = v0;
+            if (i1 < n) out[3 * ((size_t)b * n + i1) + c] = v1;
           } else {
             hout[c * kPoints + pair] = v0;
             hout[c * kPoints + pair + kPairs] = v1;
@@ -195,18 +175,15 @@ decode_batch_kernel(const T* __restrict__ flat, const T* __restrict__ points, T*
   }
 }
 
-template <typename T>
-int launch(const void* flat, const void* points, void* out, const Layout& L, const int batch,
+int launch(const float* flat, const float* points, float* out, const Layout& L, const int batch,
            const int n, cudaStream_t s) {
   const size_t bytes = sizeof(float) * (size_t)L.smem_floats;
-  cudaError_t err = cudaFuncSetAttribute(decode_batch_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(decode_batch_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + kTilePoints - 1) / kTilePoints;
   if ((long long)batch * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  decode_batch_kernel<T><<<batch * tiles, kThreads, bytes, s>>>(
-      static_cast<const T*>(flat), static_cast<const T*>(points), static_cast<T*>(out), n, tiles,
-      L);
+  decode_batch_kernel<<<batch * tiles, kThreads, bytes, s>>>(flat, points, out, n, tiles, L);
   return (int)cudaGetLastError();
 }
 
@@ -220,17 +197,16 @@ extern "C" long long hpcd_decode_batch_smem_bytes(const int* widths, int n_layer
   return (long long)sizeof(float) * L.smem_floats;
 }
 
-// flat (batch, w) and points (batch, n, 3), both fp32 or both bf16
-// (`bf16_io`), contiguous; writes out (batch, n, 3) in that dtype. Launches
-// on `stream`, does not synchronise, returns cudaGetLastError() (or
-// cudaErrorInvalidValue when the widths do not consume exactly w values).
+// flat (batch, w) and points (batch, n, 3), fp32, contiguous; writes out
+// (batch, n, 3) fp32. Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() (or cudaErrorInvalidValue when the widths do not
+// consume exactly w values).
 extern "C" int hpcd_decode_batch(const void* flat, const void* points, void* out,
-                                 const int* widths, int n_layers, int use_bias, int bf16_io,
-                                 int batch, int n, int w, void* stream) {
+                                 const int* widths, int n_layers, int use_bias, int batch, int n,
+                                 int w, void* stream) {
   Layout L;
   if (batch <= 0 || n <= 0 || !make_layout(widths, n_layers, use_bias != 0, &L) || L.flat != w)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_io ? launch<bf16>(flat, points, out, L, batch, n, s)
-                 : launch<float>(flat, points, out, L, batch, n, s);
+  return launch(static_cast<const float*>(flat), static_cast<const float*>(points),
+                static_cast<float*>(out), L, batch, n, static_cast<cudaStream_t>(stream));
 }

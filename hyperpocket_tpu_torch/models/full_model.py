@@ -12,7 +12,11 @@ fp32 masters through the casts, and returns fp32, as the JAX package does;
 is the training forward, with autograd alive: the encoders run their
 differentiable trunk (``fast=False``) and it returns ``(reconstruction, mu,
 sigma)``. ``apply(training=False)`` is the inference forward, under
-``torch.no_grad``, with the encoders' fused trunk kernel.
+``torch.no_grad``, with the encoders' fused trunk kernel and, in fp32 and
+bf16, the fused decode K10 (the op ``hyperpocket::decode_batch``) in place
+of the training forward's ``bmm`` chain: the JAX package keeps the chain in
+both modes, because its Pallas decode lost on the TPU; on the H100 the
+kernel is the faster of the two (PERF.md). fp64 and fp16 keep the chain.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 from hyperpocket_tpu_torch.models.encoder import Encoder
 from hyperpocket_tpu_torch.models.hyper_network import HyperNetwork
 from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+from hyperpocket_tpu_torch.ops import decoder
 from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
 
 MODE_HYPER_POCKET = "hyper_pocket"
@@ -117,6 +122,12 @@ class FullModel(nn.Module):
         cd = self.compute_torch_dtype
         return self if cd == torch.float32 else copy.deepcopy(self).to(cd)
 
+    def fused_decode(self, training: bool) -> bool:
+        """Whether the forward decodes through K10: inference in fp32 or bf16.
+        Decided from these two alone, before any launch: on a card, widths
+        the kernel cannot take and a failing kernel raise."""
+        return not training and self.compute_torch_dtype in (torch.float32, torch.bfloat16)
+
     def _get_latent(self, existing, missing, generator, training, noise, eps):
         """Mode-specific ``(latent, mu, sigma)``; mu and sigma only when training a VAE.
 
@@ -195,7 +206,9 @@ class FullModel(nn.Module):
             ball_points = generate_target_network_input_batch(
                 self.target_network_input, generator, epoch, existing.shape[0],
                 num_output_points, method=self.ball_method)
-        reconstruction = batched_target_network_forward(
+        decode = (decoder.decode_batch if self.fused_decode(training)
+                  else batched_target_network_forward)
+        reconstruction = decode(
             flat_weights, ball_points.to(device=flat_weights.device, dtype=cd),
             list(self.target_layer_out_channels), self.target_use_bias)
         out_dtype = cd if torch.finfo(cd).bits >= 32 else torch.float32

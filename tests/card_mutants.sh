@@ -27,7 +27,12 @@
 #   k5_split_end   each key split stops one key short of its end (the last
 #                  one only when it is full)
 #   k9_dir2_sign   K9 scatters direction 2 into grad_a with the wrong sign
-#   k10_bias       K10 drops the hidden layers' bias of every second point
+#   k10_bias       K10's fp32 kernel drops the hidden layers' bias of every
+#                  second point
+#   k10_tc_bias    K10's bf16 kernel drops the hidden layers' bias
+#   k10_tc_chain   K10's bf16 kernel swaps the halves of a layer's
+#                  accumulators as it chains them into the next layer's A
+#                  fragments (rows 8-15 of channels 0-7 and rows 0-7 of 8-15)
 cd "$(dirname "$0")/.."
 tmp=${TMPDIR:-/tmp}
 only=" $* "
@@ -97,3 +102,9 @@ mutant k9_dir2_sign chamfer_loss_grad.cu "$PHASE_PY" chamfer_loss \
   's/atomicAdd(g + c, -diff);/atomicAdd(g + c, diff);/'
 mutant k10_bias decode_batch.cu "$PHASE_PY" decode \
   's/__fadd_rn(a1\[j\], bias\[c\])/a1[j]/'
+mutant k10_tc_bias decode_batch_tc.cu "$PHASE_PY" decode \
+  's/\*reinterpret_cast<const float2\*>(bias + 16 \* nc + 2 \* t)/make_float2(0.f, 0.f)/' \
+  's/\*reinterpret_cast<const float2\*>(bias + 16 \* nc + 8 + 2 \* t)/make_float2(0.f, 0.f)/'
+mutant k10_tc_chain decode_batch_tc.cu "$PHASE_PY" decode \
+  's/h\[nc\]\[mt\]\[1\] = pack_relu(acc\[u\]\[0\]\[mt\]\[2\], acc\[u\]\[0\]\[mt\]\[3\])/h[nc][mt][1] = pack_relu(acc[u][1][mt][0], acc[u][1][mt][1])/' \
+  's/h\[nc\]\[mt\]\[2\] = pack_relu(acc\[u\]\[1\]\[mt\]\[0\], acc\[u\]\[1\]\[mt\]\[1\])/h[nc][mt][2] = pack_relu(acc[u][0][mt][2], acc[u][0][mt][3])/'

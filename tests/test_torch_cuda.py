@@ -521,11 +521,13 @@ def test_chamfer_loss_fused_value_and_grad(cuda):
         chamfer_loss_grad(gts.detach().double(), preds.detach().double())
 
 
-# K10 (ops/decoder.py::decode_batch) vs its plain version: fp32 within 2e-5
-# (summation order, tests/test_pallas_decoder.py's bound); bf16 within one
-# bf16 step of the value or 2e-2 of the output's largest entry (a hidden
-# value near a rounding boundary may round one step apart in the two
-# summation orders and carry that through the later layers).
+# K10 (ops/decoder.py::decode_batch) vs its plain version: fp32 (CUDA cores,
+# csrc/decode_batch.cu) within 2e-5 (summation order,
+# tests/test_pallas_decoder.py's bound); bf16 (tensor cores,
+# csrc/decode_batch_tc.cu) within one bf16 step of the value or 2e-2 of the
+# output's largest entry (a hidden value near a rounding boundary may round
+# one step apart in the two summation orders and carry that through the
+# later layers).
 
 DECODE_CHANNELS = [(32, 64, 128, 64), (8, 16), (16,), ()]
 
@@ -560,17 +562,58 @@ def test_decode_batch_kernel_matches_reference_fp32(cuda, channels, use_bias, sh
     assert torch.equal(decode_batch(flat, pts, channels, use_bias), got)
 
 
+def _decode_bf16_close(got, want):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= torch.maximum(_bf16_step(want.float()),
+                                      2e-2 * want.float().abs().max())).all())
+
+
+@pytest.mark.parametrize("shape", [(3, 64), (2, 1000), (4, 2048), (1, 1), (256, 2048)])
+@pytest.mark.parametrize("use_bias", [True, False])
 @pytest.mark.parametrize("channels", DECODE_CHANNELS)
-def test_decode_batch_kernel_matches_reference_bf16(cuda, channels):
+def test_decode_batch_kernel_matches_reference_bf16(cuda, channels, use_bias, shape):
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
     from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
 
-    flat, pts = _decode_inputs(channels, True, 8, 2048, torch.bfloat16, seed=1)
-    got = decode_batch(flat, pts, channels).float()
-    want = decode_batch_reference(flat, pts, channels).float()
-    err = (got - want).abs()
-    assert bool((err <= torch.maximum(_bf16_step(want), 2e-2 * want.abs().max())).all())
+    flat, pts = _decode_inputs(channels, use_bias, *shape, torch.bfloat16, seed=1)
+    before = decode_batch.launches
+    got = decode_batch(flat, pts, channels, use_bias)
+    torch.cuda.synchronize()
+    assert decode_batch.launches == before + 1
+    assert got.shape == pts.shape and got.dtype == torch.bfloat16
+    assert _decode_bf16_close(got, decode_batch_reference(flat, pts, channels, use_bias))
+    chain = batched_target_network_forward(flat, pts, list(channels), use_bias)
+    assert (got.float() - chain.float()).abs().max() <= 0.05 * max(1.0, chain.abs().max())
     # weights given in fp32 are rounded to the points' bf16 first
-    assert torch.equal(decode_batch(flat.float(), pts, channels).float(), got)
+    assert torch.equal(decode_batch(flat.float(), pts, channels, use_bias), got)
+
+
+@pytest.mark.parametrize("channels", [(20,), (24, 40), (200, 72), (256,)])
+def test_decode_batch_bf16_kernel_pads_other_widths(cuda, channels):
+    """Widths that are no multiple of 16 or 8 (zero padding, the element-wise
+    staging path) and the instantiation for up to 256 channels."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    flat, pts = _decode_inputs(channels, True, 5, 129, torch.bfloat16, seed=2)
+    got = decode_batch(flat, pts, channels)
+    assert _decode_bf16_close(got, decode_batch_reference(flat, pts, channels))
+
+
+@pytest.mark.parametrize("first", [1, 2, 3, 5])
+def test_decode_batch_bf16_rows_that_start_2_byte_aligned(cuda, first):
+    """A row is 38,022 bytes at the chair widths, so an odd sample's row
+    starts 2 bytes off a 4-byte boundary: the kernel copies rows from the
+    16-byte boundary below and shifts them into place. The batch from sample
+    ``first`` on gives the whole batch's bits for those samples."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    channels = (32, 64, 128, 64)
+    flat, pts = _decode_inputs(channels, True, 8, 300, torch.bfloat16, seed=3)
+    whole = decode_batch(flat, pts, channels)
+    part = decode_batch(flat[first:], pts[first:], channels)
+    assert flat[first:].data_ptr() % 16 != 0
+    assert torch.equal(part, whole[first:])
+    assert _decode_bf16_close(part, decode_batch_reference(flat[first:], pts[first:], channels))
 
 
 def test_decode_batch_kernel_rejects_what_it_cannot_take(cuda):
@@ -586,6 +629,79 @@ def test_decode_batch_kernel_rejects_what_it_cannot_take(cuda):
     wide, wpts = _decode_inputs((256, 256), True, 1, 64, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         decode_batch(wide, wpts, (256, 256))
+    # the bf16 kernel holds at most 256 channels in its register fragments
+    wide, wpts = _decode_inputs((272,), True, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="wider than 256"):
+        decode_batch(wide, wpts, (272,))
+    # 135 KB of padded weights and the row's 135 KB raw copy, in bf16
+    wide, wpts = _decode_inputs((256, 256), True, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_batch(wide, wpts, (256, 256))
+
+
+def test_decode_op_opcheck_on_cuda(cuda):
+    """``hyperpocket::decode_batch``'s schema, fake tensor and dispatch checks
+    with CUDA tensors, in both dtypes; every call through the op launches K10."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    channels = [32, 64, 128, 64]
+    for dtype in (torch.float32, torch.bfloat16):
+        flat, pts = _decode_inputs(channels, True, 2, 300, dtype, seed=4)
+        torch.library.opcheck(torch.ops.hyperpocket.decode_batch.default,
+                              (flat, pts, channels, True))
+        before = decode_batch.launches
+        torch.ops.hyperpocket.decode_batch(flat, pts, channels, True)
+        torch.cuda.synchronize()
+        assert decode_batch.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_served_request_launches_k10_once(cuda, dtype):
+    """The chair model at full width: a ``make_serving_fn`` request decodes
+    through K10 once (and runs K4 once in bf16); a train step launches no K10."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    cfg["compute_dtype"] = dtype
+    model = FullModel.from_config(cfg, torch.Generator().manual_seed(6))
+    f = serving.make_serving_fn(model, num_output_points=2048, device=cuda)
+    existing = _points(4, 1024, seed=13)
+    noise = torch.randn((4, model.get_noise_size()), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(14)) * 0.13
+    before = (decode_batch.launches, trunk_pooled.launches)
+    out = f(existing, noise, 3)
+    torch.cuda.synchronize()
+    assert (decode_batch.launches - before[0], trunk_pooled.launches - before[1]) == (
+        1, 1 if dtype == "bfloat16" else 0)
+    assert out.shape == (4, 2048, 3) and bool(torch.isfinite(out).all())
+    model = model.to(cuda)
+    before = decode_batch.launches
+    rec, _, _ = model.apply(existing, existing, torch.Generator(device=cuda).manual_seed(1),
+                            1.0, num_output_points=2048, training=True)
+    torch.cuda.synchronize()
+    assert decode_batch.launches == before and rec.shape == (4, 2048, 3)
+
+
+def test_inference_with_widths_k10_cannot_take_raises(cuda):
+    """The route is decided by dtype and training mode alone: a bf16 model
+    whose target layer is wider than the kernel takes raises on the card
+    before any launch, and does not decode through the ``bmm`` chain."""
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    cfg["compute_dtype"] = "bfloat16"
+    cfg["target_network"]["layer_out_channels"] = [272]
+    model = FullModel.from_config(cfg, torch.Generator().manual_seed(6)).to(cuda)
+    existing = _points(2, 1024, seed=15)
+    noise = torch.zeros((2, model.get_noise_size()), device=cuda)
+    before = decode_batch.launches
+    with pytest.raises(ValueError, match="wider than 256"):
+        model.apply(existing, existing, torch.Generator(device=cuda).manual_seed(1), 1.0,
+                    num_output_points=64, training=False, noise=noise)
+    assert decode_batch.launches == before
 
 
 # K8 (ops/trunk_pool.py::trunk_pooled_argmax): the pooled values are K4's,
@@ -829,16 +945,20 @@ def test_exported_artifact_serves_on_the_card(cuda, dtype):
     assert f.meta["device"].startswith("cuda")
     targets = {str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes}
     assert ("hyperpocket.trunk_pooled.default" in targets) == (dtype == "bfloat16")
+    assert "hyperpocket.decode_batch.default" in targets
     existing = _points(batch, n_existing, seed=8)
     noise = torch.randn((batch, model.get_noise_size()), device=cuda,
                         generator=torch.Generator(device=cuda).manual_seed(9)) * 0.13
     want = serving.make_serving_fn(model, num_output_points=n_out, device=cuda)(
         existing, noise, 21)
-    before = trunk_pooled.launches
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    before = trunk_pooled.launches, decode_batch.launches
     got = f(existing, noise, 21)
     again = f(existing, noise, 21)
     torch.cuda.synchronize()
-    assert trunk_pooled.launches == before + (2 if dtype == "bfloat16" else 0)
+    assert trunk_pooled.launches == before[0] + (2 if dtype == "bfloat16" else 0)
+    assert decode_batch.launches == before[1] + 2
     assert got.shape == (batch, n_out, 3) and got.dtype == torch.float32 and got.is_cuda
     assert torch.equal(got, again)
     tol = 1e-5 if dtype == "float32" else BF16_ATOL
@@ -847,9 +967,10 @@ def test_exported_artifact_serves_on_the_card(cuda, dtype):
 
 def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
     """settings/config_completion.json's model (HyperRec) at full width: a
-    train step launches K1 twice and no K3, a val step K3 once, and the
-    trunk runs no K4 in fp32."""
+    train step launches K1 twice and no K3 or K10, a val step K3 and K10
+    once, and the trunk runs no K4 in fp32."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.train import optim, trainer
 
     config = _settings("config_completion.json")
@@ -862,14 +983,14 @@ def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
     val_step = trainer.make_val_step(model, float(tr["loss_coef"]))
     partial, gt = _points(6, 2048, seed=10), _points(6, 2048, seed=11)
     gen = torch.Generator(device=cuda).manual_seed(12)
-    kernels = (nn_one_direction, nn_min_fused, trunk_pooled)
+    kernels = (nn_one_direction, nn_min_fused, trunk_pooled, decode_batch)
     before = [k.launches for k in kernels]
     loss, loss_r, loss_k, rec = train_step(partial, None, gt, gen, 1.0, 2048)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 0]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 0, 0]
     assert torch.isfinite(loss) and rec.shape == (6, 2048, 3) and loss_k.item() == 0.0
     before = [k.launches for k in kernels]
     val_loss, val_rec = val_step(partial[:4], None, gt[:4], gen, 1.0, 2048)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0, 1]
     assert torch.isfinite(val_loss) and val_rec.shape == (4, 2048, 3)

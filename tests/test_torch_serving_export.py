@@ -79,7 +79,7 @@ def _graph_targets(data: bytes) -> set[str]:
 def test_artifact_round_trip_equals_serving_fn(mode, dtype, n_existing):
     """The same seed gives make_serving_fn's completion; at 1024 points the
     fp32 encoders take the sparse max-pool, as on the card, and bf16 ones K4's
-    op at both counts."""
+    op at both counts; both dtypes decode through K10's op."""
     model = FullModel.from_config(tiny_config(mode, compute_dtype=dtype),
                                   torch.Generator().manual_seed(1))
     data = _export(model, n_existing=n_existing)
@@ -98,6 +98,7 @@ def test_artifact_round_trip_equals_serving_fn(mode, dtype, n_existing):
     ops = _graph_targets(data)
     assert (("hyperpocket.trunk_pooled.default" in ops)
             == (dtype == "bfloat16" and mode != MODE_HYPER_CLOUD))
+    assert "hyperpocket.decode_batch.default" in ops
 
 
 @pytest.mark.parametrize("mode", MODES)
