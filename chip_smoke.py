@@ -14,8 +14,9 @@ Phases, each fatal on any error:
 2. build: compiles ``hyperpocket_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one nvcc per source, all started together, and prints ptxas' registers,
    shared memory and spills of the trunk kernels' two instantiations (K4,
-   K8), of the fused NN sweep's two copies (K5, K9) and of the bf16 decode
-   kernel's two instantiations (K10: up to 128 and up to 256 channels); a
+   K8), of the fused NN sweep's two copies (K5, K9), of the bf16 decode
+   kernel's two instantiations (K10: up to 128 and up to 256 channels) and
+   of the CUDA-core decode kernel's two (K10: fp32 and bf16 values); a
    spill fails the run.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
    plain PyTorch version on the card, at the serving shapes and at ragged,
@@ -134,19 +135,28 @@ Phases, each fatal on any error:
    7's near-tie rules. Timed beside phase 7's route, K3 (``ratio_to_k3``)
    and the plain version, with the share of the bound reached.
 18. K10 (``decode_batch``; bf16 on the tensor cores, ``decode_batch_tc.cu``,
-   fp32 on the CUDA cores, ``decode_batch.cu``) on the served model's own
-   flat weights (the hypernetwork's output for B=256 and B=64 requests,
-   bf16 and fp32) and ball points, N=2048, through ``ops.decode_batch``
-   (one launch each): within 2e-5 (fp32) or 0.05 (bf16) of the output's
-   largest entry of the plain version and of the model's ``bmm`` chain,
-   with the bf16 steps to the plain version printed; the JAX tests' 8
-   channel/bias cases at B=3, N=64 in fp32 (elementwise within 2e-5) and in
-   bf16 (within one bf16 step or 2e-2 of the largest entry), and rows that
-   start 2-byte aligned (odd samples). At B=64 and B=256 in both dtypes:
-   the kernel's device time (launches queued behind a sleep, so no host
-   gap counts) and its time per call through the wrapper, the ``bmm``
-   chain's and the plain version's, with the share of the bound reached
-   and the ratio to the chain.
+   fp32 and wider bf16 layers on the CUDA cores, ``decode_batch.cu``) on the
+   served model's own flat weights (the hypernetwork's output for B=256 and
+   B=64 requests, bf16 and fp32) and ball points, N=2048, through
+   ``ops.decode_batch`` in the model's (chain) rounding (one launch each)
+   and in the TPU kernel's: within 2e-5 (fp32) or 0.05 (bf16) of the
+   output's largest entry of the plain version of the same rounding and of
+   the model's ``bmm`` chain, with the bf16 steps to the plain version
+   printed, and in bf16 equal to its own rounding's plain version more
+   often than to the other's; rows that start off the 16-byte grid in both
+   dtypes; the JAX tests' 8 channel/bias cases at B=3, N=64 and the wide
+   widths (272,), (256, 256), (512, 1024, 512), (4096,), (32, 4096, 32) at
+   B=2, N=300, both dtypes and both roundings, fp32 elementwise within 2e-5
+   and bf16 within one bf16 step or 2e-2 of the largest entry (the wide
+   bf16 ones launch the CUDA-core kernel's bf16 instantiation); a bf16 chair
+   model with a 272-channel target layer served once through
+   ``FullModel.apply`` (one launch of that instantiation, within the bf16
+   gate of the plain decode). At B=64 and B=256 in both dtypes, and for
+   the bf16 CUDA-core instantiation at 272 channels, B=64: the kernel's
+   device time (launches queued behind a sleep, so no host gap counts) and
+   its time per call in the chain rounding and in the TPU kernel's, the
+   ``bmm`` chain's and the plain version's, with the share of the bound
+   reached and the ratio to the chain.
 
 19. export: the served chair model exported on the card
    (``serving.export_completion``) in bf16 and fp32 at B=64 and B=256,
@@ -384,7 +394,8 @@ def ptxas_check(log: Path, kernel: str, what: str) -> list:
     """ptxas' registers, shared memory and spills of the two entry functions
     whose names hold ``kernel``: K4's and K8's instantiations of
     ``trunk_pool_kernel``, the copies of ``nn_fused_kernel`` in K5's and
-    K9's sources, or K10's two instantiations of ``decode_batch_tc_kernel``.
+    K9's sources, K10's two instantiations of ``decode_batch_tc_kernel`` or
+    its two of ``decode_batch_kernel`` (fp32 and bf16 values).
     Spills fail the run."""
     from hyperpocket_tpu_torch.ops import _build
 
@@ -1750,9 +1761,26 @@ def chamfer_fused_vs_plain(device) -> dict:
     return out
 
 
+WIDE_DECODE_CHANNELS = ((272,), (256, 256), (512, 1024, 512), (4096,), (32, 4096, 32))
+
+
+def _decode_gate(got: torch.Tensor, want: torch.Tensor, bf16: bool) -> tuple[bool, float]:
+    """K10's gate on small and wide cases: fp32 within 2e-5 elementwise (of the
+    output's largest entry where it passes 1), bf16 within one bf16 step or
+    2e-2 of the largest entry (the card tests')."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = (torch.maximum(_bf16_step(want), 2e-2 * want.abs().max()) if bf16
+           else 2e-5 * max(1.0, want.abs().max().item()) + 2e-5 * want.abs())
+    return bool((err <= lim).all()) and bool(torch.isfinite(got).all()), err.max().item()
+
+
 def decode_vs_plain(model, model32, device) -> dict:
-    """Phase 18: K10 on the served model's own flat weights and ball points."""
+    """Phase 18: K10 on the served model's own flat weights and ball points,
+    in both roundings; the small and the wide widths; a wide bf16 model's
+    inference forward."""
     from hyperpocket_tpu_torch import ops
+    from hyperpocket_tpu_torch.models.full_model import FullModel
     from hyperpocket_tpu_torch.models.hyper_network import target_weight_count
     from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
     from hyperpocket_tpu_torch.ops.decoder import decode_batch_reference
@@ -1774,8 +1802,8 @@ def decode_vs_plain(model, model32, device) -> dict:
                 net.target_network_input, gen, 1e9, batch, N_OUT).to(cd)
             inputs[f"{dtype}_B{batch}"] = (flat, balls)
         del net
-    ops.decode_batch.launches = 0  # each request's decode through the op
-    outs = {name: ops.decode_batch(flat, balls, channels, use_bias)
+    ops.decode_batch.launches = 0  # each request's decode through the op, in the model's rounding
+    outs = {name: ops.decode_batch(flat, balls, channels, use_bias, round_product=True)
             for name, (flat, balls) in inputs.items()}
     torch.cuda.synchronize()
     launches = ops.decode_batch.launches
@@ -1783,87 +1811,167 @@ def decode_vs_plain(model, model32, device) -> dict:
 
     res = {"launches": launches, "cases": {}}
     for name, (flat, balls) in inputs.items():
-        got = outs[name].float()
-        check(got.shape == balls.shape and outs[name].dtype == balls.dtype
-              and bool(torch.isfinite(got).all()), f"{name}: K10 output {tuple(got.shape)}")
-        plain = decode_batch_reference(flat, balls, channels, use_bias).float()
-        chain = batched_target_network_forward(flat, balls, list(channels), use_bias).float()
-        diff = (got - plain).abs()
-        r = {"max_abs_err": diff.max().item(), "scale": plain.abs().max().item(),
-             "chain_max_abs_err": (got - chain).abs().max().item(),
-             "equal_share": (diff == 0).float().mean().item()}
-        if name.startswith("bf16"):
-            steps = diff / _bf16_step(plain)
-            r["max_bf16_steps"] = steps.max().item()
-            r["share_beyond_one_step"] = (steps > 1).float().mean().item()
+        r = {}
+        plains = {rp: decode_batch_reference(flat, balls, channels, use_bias, rp).float()
+                  for rp in (True, False)}
+        # the model's (chain) rounding, then the TPU kernel's
+        for key, rp in (("", True), ("tpu_rounding_", False)):
+            got = (outs[name] if rp else ops.decode_batch(flat, balls, channels, use_bias)).float()
+            check(got.shape == balls.shape and bool(torch.isfinite(got).all()),
+                  f"{name}: K10 output {tuple(got.shape)}")
+            plain = plains[rp]
+            # each rounding agrees with its own plain version more often than
+            # with the other's: one rounding apart stays inside the gates below
+            own, other = (got == plain).float().mean().item(), (
+                got == plains[not rp]).float().mean().item()
+            r[f"{key}other_rounding_equal_share"] = other
+            if name.startswith("bf16"):
+                check(own > other, f"{name}: K10's {key or 'chain_'}rounding output equals its "
+                      f"plain version in {own} of the outputs, the other rounding's in {other}")
+            diff = (got - plain).abs()
+            r.update({f"{key}max_abs_err": diff.max().item(),
+                      f"{key}equal_share": (diff == 0).float().mean().item()})
+            if name.startswith("bf16"):
+                steps = diff / _bf16_step(plain)
+                r[f"{key}max_bf16_steps"] = steps.max().item()
+                r[f"{key}share_beyond_one_step"] = (steps > 1).float().mean().item()
+            if rp:
+                chain = batched_target_network_forward(flat, balls, list(channels),
+                                                       use_bias).float()
+                r["scale"] = plain.abs().max().item()
+                r["chain_max_abs_err"] = (got - chain).abs().max().item()
+                r["chain_equal_share"] = (got == chain).float().mean().item()
         # tests/test_pallas_decoder.py's bounds (2e-5 fp32, 0.05 bf16) hold on
         # outputs of order 1; the model's own weights give outputs near 60
         # and hidden values larger still, so each bound is taken relative to
         # the output's largest entry
         limit = (0.05 if name.startswith("bf16") else 2e-5) * max(1.0, r["scale"])
-        check(r["max_abs_err"] <= limit, f"{name}: K10 off the plain version by "
-              f"{r['max_abs_err']} > {limit}")
-        check(r["chain_max_abs_err"] <= limit, f"{name}: K10 off the model's bmm chain by "
-              f"{r['chain_max_abs_err']} > {limit}")
+        for key in ("max_abs_err", "tpu_rounding_max_abs_err", "chain_max_abs_err"):
+            check(r[key] <= limit, f"{name}: K10 {key} {r[key]} > {limit}")
         res["cases"][name] = r
         print(f"K10 {name}: {json.dumps(r)}")
 
-    # rows that start 2-byte aligned: the served bf16 request from its second
-    # and fourth sample on (a row is 38,022 bytes, so they start 6 and 2 bytes
-    # past a 16-byte boundary); each point's arithmetic is the same in any block
-    flat, balls = inputs[f"bf16_B{SERVE_BATCH}"]
-    for first in (1, 3):
-        got = ops.decode_batch(flat[first:], balls[first:], channels, use_bias)
-        check(flat[first:].data_ptr() % 16 != 0
-              and torch.equal(got, outs[f"bf16_B{SERVE_BATCH}"][first:]),
-              f"K10 bf16 on rows from sample {first} differs from the whole batch's")
+    # rows that start off the 16-byte grid: the served requests from their
+    # second and fourth sample on (a bf16 row is 38,022 bytes, an fp32 one
+    # 76,044); each point's arithmetic is the same in any block
+    for dtype in ("bf16", "fp32"):
+        flat, balls = inputs[f"{dtype}_B{SERVE_BATCH}"]
+        for first in (1, 3):
+            got = ops.decode_batch(flat[first:], balls[first:], channels, use_bias,
+                                   round_product=True)
+            check(flat[first:].data_ptr() % 16 != 0
+                  and torch.equal(got, outs[f"{dtype}_B{SERVE_BATCH}"][first:]),
+                  f"K10 {dtype} on rows from sample {first} differs from the whole batch's")
 
-    # tests/test_pallas_decoder.py's cases at B=3, N=64: fp32 elementwise within
-    # 2e-5, bf16 within one bf16 step or 2e-2 of the largest entry (the card tests')
-    small_err = {"fp32": 0.0, "bf16": 0.0}
-    for small in ((32, 64, 128, 64), (8, 16), (16,), ()):
-        for bias in (True, False):
-            w = target_weight_count(list(small), bias)
-            flat = torch.randn((3, w), generator=gen, device=device) * 0.2
-            pts = torch.randn((3, 64, 3), generator=gen, device=device) * 0.5
-            for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-                got = ops.decode_batch(flat.to(dtype), pts.to(dtype), small, bias).float()
-                want = decode_batch_reference(flat.to(dtype), pts.to(dtype), small, bias).float()
-                err = (got - want).abs()
-                lim = (2e-5 + 2e-5 * want.abs() if name == "fp32"
-                       else torch.maximum(_bf16_step(want), 2e-2 * want.abs().max()))
-                check(bool((err <= lim).all()), f"K10 {name} channels {small} bias {bias}: "
-                      f"off the plain version by {err.max().item()}")
-                small_err[name] = max(small_err[name], err.max().item())
-    print(f"K10 small cases: max_abs_err {json.dumps(small_err)}")
+    # tests/test_pallas_decoder.py's cases at B=3, N=64, and the wide widths
+    # (the CUDA-core kernel in both dtypes, weights resident or streamed) at
+    # B=2, N=300 with the weights scaled to keep the outputs of order 1; both
+    # roundings each
+    small_err, equal = {}, {}
+    ops.decode_batch.launches_bf16_simt = 0
+    for cases, n, scale in (((tuple(channels), (8, 16), (16,), ()), 64, 0.2),
+                            (WIDE_DECODE_CHANNELS, 300, 0.05)):
+        for small in cases:
+            for bias in (True, False):
+                w = target_weight_count(list(small), bias)
+                flat = torch.randn((2 if n == 300 else 3, w), generator=gen,
+                                   device=device) * scale
+                pts = torch.randn((flat.shape[0], n, 3), generator=gen, device=device) * 0.5
+                for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    args = (flat.to(dtype), pts.to(dtype), small, bias)
+                    plains = {rp: decode_batch_reference(*args, rp) for rp in (False, True)}
+                    for rp in (False, True):
+                        got = ops.decode_batch(*args, round_product=rp)
+                        ok, err = _decode_gate(got, plains[rp], name == "bf16")
+                        check(ok, f"K10 {name} channels {small} bias {bias} round_product {rp}: "
+                              f"off the plain version by {err}")
+                        key = f"{name}_{'wide' if n == 300 else 'small'}"
+                        small_err[key] = max(small_err.get(key, 0.0), err)
+                        if name == "bf16":  # outputs equal to the own and the other plain rounding
+                            for k, want in ((f"{key}_{rp}_own", plains[rp]),
+                                            (f"{key}_{rp}_other", plains[not rp])):
+                                equal[k] = equal.get(k, 0) + int((got == want).sum())
+    for key in ("bf16_small", "bf16_wide"):
+        for rp in (False, True):
+            check(equal[f"{key}_{rp}_own"] > equal[f"{key}_{rp}_other"],
+                  f"K10 {key} round_product {rp}: {equal[f'{key}_{rp}_own']} outputs equal to "
+                  f"its plain version, {equal[f'{key}_{rp}_other']} to the other rounding's")
+    print(f"K10 small and wide cases, bf16 outputs equal to each plain rounding: "
+          f"{json.dumps(equal)}")
+    wide_simt = ops.decode_batch.launches_bf16_simt
+    check(wide_simt == 2 * 2 * len(WIDE_DECODE_CHANNELS),
+          f"the wide bf16 cases launched the CUDA-core kernel {wide_simt} times")
+    print(f"K10 small and wide cases: max_abs_err {json.dumps(small_err)}")
+    res["small_err"] = small_err
 
-    macs = sum(i * o for i, o in zip((3, *channels), (*channels, 3)))
-    res["times"] = {}
-    for name, (flat, balls) in inputs.items():
+    # a bf16 model with a 272-channel target layer: its inference forward
+    # decodes through the CUDA-core kernel's bf16 instantiation once
+    cfg = json.loads(CONFIG.read_text())["full_model"]
+    cfg["compute_dtype"] = "bfloat16"
+    cfg["target_network"]["layer_out_channels"] = [272]
+    wide = FullModel.from_config(cfg, torch.Generator().manual_seed(SEED + 18)).to(device)
+    existing = torch.randn((SERVE_BATCH, N_EXISTING, 3), generator=gen, device=device) * 0.3
+    noise = torch.randn((SERVE_BATCH, wide.get_noise_size()), generator=gen, device=device) * 0.13
+    balls = generate_target_network_input_batch(wide.target_network_input, gen, 1e9, SERVE_BATCH,
+                                                N_OUT)
+    ops.decode_batch.launches = ops.decode_batch.launches_bf16_simt = 0
+    out = wide.apply(existing, None, None, 1e9, num_output_points=N_OUT, training=False,
+                     noise=noise, ball_points=balls)
+    torch.cuda.synchronize()
+    res["wide_model_launches"] = {"decode_batch": ops.decode_batch.launches,
+                                  "decode_batch_bf16_simt": ops.decode_batch.launches_bf16_simt}
+    check(res["wide_model_launches"] == {"decode_batch": 1, "decode_batch_bf16_simt": 1},
+          f"the 272-channel bf16 forward: K10 launches {res['wide_model_launches']}")
+    with torch.no_grad():
+        latent, _, _ = wide._get_latent(existing.bfloat16(), None, None, False, noise.bfloat16(),
+                                        None)
+        wide_flat = wide.hyper_network(latent)
+    ok, err = _decode_gate(out, decode_batch_reference(wide_flat, balls.bfloat16(), [272], True,
+                                                       True), True)
+    check(ok and out.shape == (SERVE_BATCH, N_OUT, 3),
+          f"the 272-channel bf16 forward is off the plain decode by {err}")
+    res["wide_model_max_abs_err"] = err
+    print(f"K10 272-channel bf16 model forward: launches {json.dumps(res['wide_model_launches'])}, "
+          f"max_abs_err {err}")
+    del wide
+
+    def timing(flat, balls, chans):
         size = balls.element_size()
+        macs = sum(i * o for i, o in zip((3, *chans), (*chans, 3)))
         ops_ = 2 * macs * balls.shape[0] * balls.shape[1]
 
-        def kernel():
-            return ops.decode_batch(flat, balls, channels, use_bias)
+        def kernel():  # the model's route: the chain's rounding
+            return ops.decode_batch(flat, balls, chans, use_bias, round_product=True)
 
         def chain():  # the model's training decode: cuBLAS bmm + bias add + ReLU per layer
-            return batched_target_network_forward(flat, balls, list(channels), use_bias)
+            return batched_target_network_forward(flat, balls, list(chans), use_bias)
 
         # ms and chain_ms by CUDA events as every kernel's row; the *_device_ms
         # beside them with the calls queued behind a sleep, without host gaps
         t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+             "tpu_rounding_ms": cuda_ms(lambda: ops.decode_batch(flat, balls, chans, use_bias)),
              "chain_ms": cuda_ms(chain, iters=10),
              "chain_device_ms": device_ms(chain, iters=10),
-             "plain_ms": cuda_ms(lambda: decode_batch_reference(flat, balls, channels, use_bias),
-                                 iters=3),
-             # bf16 on the tensor cores, fp32 on the CUDA cores
+             "plain_ms": cuda_ms(lambda: decode_batch_reference(flat, balls, chans, use_bias,
+                                                                True), iters=3),
+             # the inputs' type at its peak: bf16 on the tensor cores, fp32 on the CUDA cores
              **bound(size * (flat.numel() + 2 * balls.numel()),
                      ops_ / (BF16_FLOPS if size == 2 else FP32_FLOPS))}
         t["bound_share"] = t["bound_ms"] / t["ms"]
         t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
         t["ratio_to_chain"] = t["ms"] / t["chain_ms"]
-        res["times"][name] = t
-        print(f"K10 timing {name}: {json.dumps(t)}")
+        return t
+
+    res["times"] = {}
+    for name, (flat, balls) in inputs.items():
+        res["times"][name] = timing(flat, balls, tuple(channels))
+        print(f"K10 timing {name}: {json.dumps(res['times'][name])}")
+    # the bf16 CUDA-core instantiation on a served-size request at 272 channels
+    flat = torch.randn((SERVE_BATCH, target_weight_count([272], True)), generator=gen,
+                       device=device).bfloat16() * 0.05
+    name = f"bf16_simt_272_B{SERVE_BATCH}"
+    res["times"][name] = timing(flat, inputs[f"bf16_B{SERVE_BATCH}"][1], (272,))
+    print(f"K10 timing {name}: {json.dumps(res['times'][name])}")
     return res
 
 
@@ -2283,6 +2391,7 @@ def main(argv=None) -> int:
     ptxas_check(log, "trunk_pool_kernel", "trunk")
     ptxas_check(log, "nn_fused_kernel", "fused NN sweep")
     ptxas_check(log, "decode_batch_tc_kernel", "bf16 decode")
+    ptxas_check(log, "decode_batch_kernel", "CUDA-core decode")
 
     config, model = build_model("bfloat16")
     model32 = copy.deepcopy(model)
@@ -2379,6 +2488,12 @@ def main(argv=None) -> int:
               fp32["val_launches"]["decode_batch"],
               k10["cases"][f"fp32_B{BENCH_BATCH}"]["max_abs_err"],
               k10["times"][f"fp32_B{BENCH_BATCH}"], library_key="chain_ms"),
+        # the same source's bf16 instantiation, for bf16 widths the tensor cores' kernel
+        # cannot hold: a 272-channel model's inference forward (phase 18)
+        entry("decode_batch_bf16_simt", "decode_batch.cu",
+              "hyperpocket_tpu/ops/pallas_decoder.py:117",
+              k10["wide_model_launches"]["decode_batch_bf16_simt"], k10["small_err"]["bf16_wide"],
+              k10["times"][f"bf16_simt_272_B{SERVE_BATCH}"], library_key="chain_ms"),
     ]
     print(f"SM clock, power, temperature at the end: {clock_line()}")
     print(card)

@@ -7,11 +7,14 @@
 // row of the flat weight vector (per layer a row-major (out, in) block, then
 // the bias when there is one), run on its N points, with the TPU kernel's
 // arithmetic:
-//   layer 0:  acc = bias + x0 w0 + x1 w1 + x2 w2 in fp32 (bf16 products are
-//             exact in fp32, so the FMAs give the TPU kernel's bits);
-//   others:   a bf16 dot with fp32 accumulation, plus the fp32 bias;
-// ReLU after every layer but the last, and each layer's output rounded once
-// to bf16.
+//   layer 0:  acc = x0 w0 + x1 w1 + x2 w2 in fp32 (bf16 products are exact
+//             in fp32, so the FMAs give the plain version's bits);
+//   others:   a bf16 dot with fp32 accumulation;
+// then one of two roundings, chosen by the caller: the TPU kernel's (the
+// accumulator starts from the bias, the sum is rounded once to bf16) or the
+// JAX model's bmm chain (models/target_network.py: the accumulator rounded
+// to bf16, the bias added, the sum rounded again); ReLU after every layer
+// but the last.
 //
 // What bounds it on the H100: arithmetic. At the chair widths a point takes
 // 18,720 multiply-adds (19,456 with the last layer's 3 outputs padded to 8)
@@ -43,8 +46,10 @@
 //   * the A fragments of a layer's input and output live in two register
 //     arrays sized for the widest layer the instantiation takes (128
 //     channels with two row tiles a warp, or 256 with one).
-// Widths the instantiations cannot hold, or whose weights need more shared
-// memory than a block may have, are refused before any launch.
+// Widths the instantiations cannot hold (a hidden layer wider than 256
+// channels), or whose weights need more shared memory than a block may have,
+// go to decode_batch.cu's bf16 instantiation: the wrapper chooses from the
+// widths alone, before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,6 +146,31 @@ __device__ __forceinline__ uint32_t pack_relu(const float lo, const float hi) {
   return d;
 }
 
+// lo, hi rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack(const float lo, const float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// The chain's rounding of a pair: relu(round(round(acc) + bias)), the bias
+// packed as bf16 (its values are bf16 already); one bf16x2 FMA by 1.0
+// rounds the exact sum once
+__device__ __forceinline__ uint32_t chain_relu(const float lo, const float hi,
+                                               const uint32_t bias2) {
+  uint32_t d;
+  asm("fma.rn.relu.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(pack(lo, hi)), "r"(0x3f803f80u),
+      "r"(bias2));
+  return d;
+}
+
+// One output value without ReLU: the kernel's rounding has summed from the
+// bias already; the chain's rounds, adds the bias and rounds again
+__device__ __forceinline__ bf16 round_out(const float acc, const float b, const bool chain) {
+  return chain ? __hadd(__float2bfloat16_rn(acc), __float2bfloat16_rn(b))
+               : __float2bfloat16_rn(acc);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&b)[4], const bf16* p) {
   const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -177,7 +207,7 @@ template <int KF, int MT>
 __device__ __forceinline__ void hidden_layer(const uint32_t (&a)[KF][MT][4],
                                              uint32_t (&h)[KF][MT][4], const bf16* w,
                                              const float* bias, const int kfs, const int ncs,
-                                             const int ld, const int lane) {
+                                             const int ld, const int lane, const bool chain) {
   const int t = lane & 3;
   // ldmatrix.x4 rows: lanes 0-7 channels 0-7 at k 0-7, lanes 8-15 the same
   // channels at k 8-15, lanes 16-31 channels 8-15 likewise
@@ -189,12 +219,15 @@ __device__ __forceinline__ void hidden_layer(const uint32_t (&a)[KF][MT][4],
     // then keeps a copy of the loop with both chunks' chains interleaved
     const bool two = kChunks == 2 && nc0 + 1 < ncs;
     float acc[2][2][MT][4];
+    float2 bs[2][2];  // the bias of channels 2t, 2t + 1 and those + 8, per chunk
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       if (u == 1 && !two) break;
       const int nc = nc0 + u;
-      const float2 b_lo = *reinterpret_cast<const float2*>(bias + 16 * nc + 2 * t);
-      const float2 b_hi = *reinterpret_cast<const float2*>(bias + 16 * nc + 8 + 2 * t);
+      bs[u][0] = *reinterpret_cast<const float2*>(bias + 16 * nc + 2 * t);
+      bs[u][1] = *reinterpret_cast<const float2*>(bias + 16 * nc + 8 + 2 * t);
+      const float2 b_lo = chain ? make_float2(0.f, 0.f) : bs[u][0];
+      const float2 b_hi = chain ? make_float2(0.f, 0.f) : bs[u][1];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         acc[u][0][mt][0] = acc[u][0][mt][2] = b_lo.x;
@@ -226,10 +259,17 @@ __device__ __forceinline__ void hidden_layer(const uint32_t (&a)[KF][MT][4],
       const int nc = nc0 + u;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        h[nc][mt][0] = pack_relu(acc[u][0][mt][0], acc[u][0][mt][1]);
-        h[nc][mt][1] = pack_relu(acc[u][0][mt][2], acc[u][0][mt][3]);
-        h[nc][mt][2] = pack_relu(acc[u][1][mt][0], acc[u][1][mt][1]);
-        h[nc][mt][3] = pack_relu(acc[u][1][mt][2], acc[u][1][mt][3]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (chain) {
+            const uint32_t b2 = pack(bs[u][half].x, bs[u][half].y);
+            h[nc][mt][2 * half] = chain_relu(acc[u][half][mt][0], acc[u][half][mt][1], b2);
+            h[nc][mt][2 * half + 1] = chain_relu(acc[u][half][mt][2], acc[u][half][mt][3], b2);
+          } else {
+            h[nc][mt][2 * half] = pack_relu(acc[u][half][mt][0], acc[u][half][mt][1]);
+            h[nc][mt][2 * half + 1] = pack_relu(acc[u][half][mt][2], acc[u][half][mt][3]);
+          }
+        }
       }
     }
   }
@@ -241,15 +281,15 @@ template <int KF, int MT>
 __device__ __forceinline__ void last_layer(const uint32_t (&a)[KF][MT][4], const bf16* w,
                                            const float* bias, const int kfs, const int ld,
                                            const int lane, bf16* out, const int p0,
-                                           const int n) {
+                                           const int n, const bool chain) {
   const int g = lane >> 2, t = lane & 3;
   const bf16* wl = w + (lane & 7) * ld + ((lane >> 3) & 1) * 8;
   const float2 b = *reinterpret_cast<const float2*>(bias + 2 * t);
   float acc[MT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    acc[mt][0] = acc[mt][2] = b.x;
-    acc[mt][1] = acc[mt][3] = b.y;
+    acc[mt][0] = acc[mt][2] = chain ? 0.f : b.x;
+    acc[mt][1] = acc[mt][3] = chain ? 0.f : b.y;
   }
 #pragma unroll
   for (int kf = 0; kf < KF; ++kf) {
@@ -267,8 +307,8 @@ __device__ __forceinline__ void last_layer(const uint32_t (&a)[KF][MT][4], const
       const int row = p0 + 16 * mt + g + 8 * half;
       if (row >= n) continue;
       bf16* o = out + 3 * (size_t)row + 2 * t;
-      o[0] = __float2bfloat16_rn(acc[mt][2 * half]);
-      if (t == 0) o[1] = __float2bfloat16_rn(acc[mt][2 * half + 1]);
+      o[0] = round_out(acc[mt][2 * half], b.x, chain);
+      if (t == 0) o[1] = round_out(acc[mt][2 * half + 1], b.y, chain);
     }
   }
 }
@@ -344,10 +384,11 @@ template <int KF, int MT>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_batch_tc_kernel(const bf16* __restrict__ flat, const bf16* __restrict__ points,
                        bf16* __restrict__ out, const int n, const int tiles,
-                       const int tile_points, const Layout L) {
+                       const int tile_points, const int chain_rounding, const Layout L) {
   extern __shared__ __align__(16) unsigned char sm[];
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x % tiles;
+  const bool chain = chain_rounding != 0;
   stage_weights(flat + (size_t)b * L.flat, sm, L);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -369,10 +410,10 @@ decode_batch_tc_kernel(const bf16* __restrict__ flat, const bf16* __restrict__ p
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int row = p0 + 16 * mt + g + 8 * half;
-            float v = b0[t];
+            float v = chain ? 0.f : b0[t];
 #pragma unroll
             for (int c = 0; c < 3; ++c) v = fmaf(x[mt][half][c], w0[c * np0 + t], v);
-            if (row < n) dst[3 * (size_t)row + t] = __float2bfloat16_rn(v);
+            if (row < n) dst[3 * (size_t)row + t] = round_out(v, b0[t], chain);
           }
       }
       continue;
@@ -392,13 +433,13 @@ decode_batch_tc_kernel(const bf16* __restrict__ flat, const bf16* __restrict__ p
         for (int c = 0; c < 3; ++c) wc[c] = *reinterpret_cast<const float2*>(w0 + c * np0 + col);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          float v0 = bias.x, v1 = bias.y;
+          float v0 = chain ? 0.f : bias.x, v1 = chain ? 0.f : bias.y;
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
             v0 = fmaf(x[mt][j & 1][c], wc[c].x, v0);
             v1 = fmaf(x[mt][j & 1][c], wc[c].y, v1);
           }
-          fa[kf][mt][j] = pack_relu(v0, v1);
+          fa[kf][mt][j] = chain ? chain_relu(v0, v1, pack(bias.x, bias.y)) : pack_relu(v0, v1);
         }
       }
     }
@@ -409,9 +450,9 @@ decode_batch_tc_kernel(const bf16* __restrict__ flat, const bf16* __restrict__ p
       const float* bias = reinterpret_cast<const float*>(sm + L.b_dst[li]);
       const int kfs = L.kpad[li] / 16, ncs = L.npad[li] / 16, ld = L.kpad[li] + 8;
       if (in_fa)
-        hidden_layer<KF, MT>(fa, fb, w, bias, kfs, ncs, ld, lane);
+        hidden_layer<KF, MT>(fa, fb, w, bias, kfs, ncs, ld, lane, chain);
       else
-        hidden_layer<KF, MT>(fb, fa, w, bias, kfs, ncs, ld, lane);
+        hidden_layer<KF, MT>(fb, fa, w, bias, kfs, ncs, ld, lane, chain);
       in_fa = !in_fa;
     }
     const int li = L.n_layers - 1;
@@ -419,16 +460,16 @@ decode_batch_tc_kernel(const bf16* __restrict__ flat, const bf16* __restrict__ p
     const float* bias = reinterpret_cast<const float*>(sm + L.b_dst[li]);
     const int kfs = L.kpad[li] / 16, ld = L.kpad[li] + 8;
     if (in_fa)
-      last_layer<KF, MT>(fa, w, bias, kfs, ld, lane, dst, p0, n);
+      last_layer<KF, MT>(fa, w, bias, kfs, ld, lane, dst, p0, n, chain);
     else
-      last_layer<KF, MT>(fb, w, bias, kfs, ld, lane, dst, p0, n);
+      last_layer<KF, MT>(fb, w, bias, kfs, ld, lane, dst, p0, n, chain);
   }
 }
 
 // KF k16 fragments (16 KF channels) and MT row tiles a warp
 template <int KF, int MT>
 int launch(const void* flat, const void* points, void* out, const Layout& L, const int batch,
-           const int n, const int tile_points, cudaStream_t s) {
+           const int n, const int tile_points, const int chain, cudaStream_t s) {
   if (tile_points <= 0 || tile_points % (16 * MT * kWarps) != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(decode_batch_tc_kernel<KF, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -438,7 +479,7 @@ int launch(const void* flat, const void* points, void* out, const Layout& L, con
   if ((long long)batch * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   decode_batch_tc_kernel<KF, MT><<<batch * tiles, kThreads, L.smem_bytes, s>>>(
       static_cast<const bf16*>(flat), static_cast<const bf16*>(points), static_cast<bf16*>(out),
-      n, tiles, tile_points, L);
+      n, tiles, tile_points, chain, L);
   return (int)cudaGetLastError();
 }
 
@@ -464,18 +505,21 @@ extern "C" long long hpcd_decode_batch_bf16_smem_bytes(const int* widths, int n_
 
 // flat (batch, w) and points (batch, n, 3), bf16, contiguous; writes out
 // (batch, n, 3) bf16. A block takes tile_points points of one sample (a
-// multiple of hpcd_decode_batch_bf16_tile_quantum). Launches on `stream`,
+// multiple of hpcd_decode_batch_bf16_tile_quantum); chain_rounding selects
+// the chain's rounding. Launches on `stream`,
 // does not synchronise, returns cudaGetLastError() (or
 // cudaErrorInvalidValue when the widths do not consume exactly w values or
 // the kernel cannot take them).
 extern "C" int hpcd_decode_batch_bf16(const void* flat, const void* points, void* out,
                                       const int* widths, int n_layers, int use_bias, int batch,
-                                      int n, int w, int tile_points, void* stream) {
+                                      int n, int w, int tile_points, int chain_rounding,
+                                      void* stream) {
   Layout L;
   if (batch <= 0 || n <= 0 || !make_layout(widths, n_layers, use_bias != 0, &L) ||
       L.flat != w || L.max_width > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return L.max_width <= 128 ? launch<8, 2>(flat, points, out, L, batch, n, tile_points, s)
-                            : launch<16, 1>(flat, points, out, L, batch, n, tile_points, s);
+  return L.max_width <= 128
+             ? launch<8, 2>(flat, points, out, L, batch, n, tile_points, chain_rounding, s)
+             : launch<16, 1>(flat, points, out, L, batch, n, tile_points, chain_rounding, s);
 }

@@ -25,7 +25,7 @@ import os
 import torch
 from torch import nn
 
-from hyperpocket_tpu_torch.models.initializers import dense, dense_init_
+from hyperpocket_tpu_torch.models.initializers import dense, dense_init_, linear
 from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
 
 CONV_CHANNELS = (3, 64, 128, 256, 512, 512)
@@ -99,7 +99,7 @@ def _stack(params, x: torch.Tensor) -> list[torch.Tensor]:
     pre, h = [], x
     n_layers = len(params) // 2
     for i in range(n_layers):
-        a = nn.functional.linear(h, params[2 * i], params[2 * i + 1])
+        a = linear(h, params[2 * i], params[2 * i + 1])
         pre.append(a)
         h = torch.relu(a) if i < n_layers - 1 else a
     return pre

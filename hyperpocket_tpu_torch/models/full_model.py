@@ -206,11 +206,13 @@ class FullModel(nn.Module):
             ball_points = generate_target_network_input_batch(
                 self.target_network_input, generator, epoch, existing.shape[0],
                 num_output_points, method=self.ball_method)
-        decode = (decoder.decode_batch if self.fused_decode(training)
-                  else batched_target_network_forward)
-        reconstruction = decode(
-            flat_weights, ball_points.to(device=flat_weights.device, dtype=cd),
-            list(self.target_layer_out_channels), self.target_use_bias)
+        decode_args = (flat_weights, ball_points.to(device=flat_weights.device, dtype=cd),
+                       list(self.target_layer_out_channels), self.target_use_bias)
+        if self.fused_decode(training):
+            # the chain's rounding, so that K10 decodes as the JAX model does
+            reconstruction = decoder.decode_batch(*decode_args, round_product=True)
+        else:
+            reconstruction = batched_target_network_forward(*decode_args)
         out_dtype = cd if torch.finfo(cd).bits >= 32 else torch.float32
         reconstruction = reconstruction.to(out_dtype)
         trunk = (trunk_h,) if return_trunk else ()

@@ -19,6 +19,7 @@ from torch import nn
 from hyperpocket_tpu_torch.models.initializers import (
     dense,
     dense_init_,
+    linear,
     torch_default_linear_,
     xavier_relu_,
 )
@@ -84,7 +85,7 @@ class HyperNetwork(nn.Module):
             w, b = w.detach(), b.detach()
         elif stop_head_weight_grad:
             w = w.detach()
-        flat = nn.functional.linear(h, w.to(h.dtype), b.to(h.dtype))
+        flat = linear(h, w.to(h.dtype), b.to(h.dtype))
         if head_delta is not None:
             flat = flat + head_delta.to(flat.dtype)
         return (flat, h) if return_trunk else flat

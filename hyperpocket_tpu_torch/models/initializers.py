@@ -45,12 +45,29 @@ def torch_default_linear_(linear: nn.Linear, generator: torch.Generator) -> None
         linear.bias.uniform_(-bound, bound, generator=generator)
 
 
-def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``linear`` applied with its parameters cast to ``x``'s dtype at use.
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """``x @ weight.T + bias`` rounded as the JAX package's ``apply_dense``:
+    the product rounded to ``x``'s dtype, then the sum with the bias.
+
+    In bf16 and fp16 that is two roundings, so the bias is added apart
+    (``nn.functional.linear`` would add it to the fp32 accumulator before
+    its one rounding). In fp32 and fp64 the GEMM accumulates in ``x``'s
+    dtype, so rounding the product changes nothing and
+    ``nn.functional.linear``, the bias in the GEMM's epilogue, computes the
+    same sum without a second pass over the output.
+    """
+    if bias is None or torch.finfo(x.dtype).bits >= 32:
+        return nn.functional.linear(x, weight, bias)
+    return x @ weight.T + bias
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied by ``linear`` with its parameters cast to ``x``'s
+    dtype at use.
 
     The JAX package casts the fp32 master parameters to the compute dtype
     inside ``apply``; the cast is a no-op on parameters already in that dtype
     (``FullModel.serving_params``).
     """
-    b = None if linear.bias is None else linear.bias.to(x.dtype)
-    return nn.functional.linear(x, linear.weight.to(x.dtype), b)
+    b = None if layer.bias is None else layer.bias.to(x.dtype)
+    return linear(x, layer.weight.to(x.dtype), b)

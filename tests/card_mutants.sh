@@ -27,12 +27,19 @@
 #   k5_split_end   each key split stops one key short of its end (the last
 #                  one only when it is full)
 #   k9_dir2_sign   K9 scatters direction 2 into grad_a with the wrong sign
-#   k10_bias       K10's fp32 kernel drops the hidden layers' bias of every
-#                  second point
+#   k10_bias       K10's CUDA-core kernel drops the bias in the TPU kernel's
+#                  rounding wherever `finish` adds it (fp32: the last layer;
+#                  bf16: every layer after the first)
+#   k10_tile       the CUDA-core kernel's register tile swaps two of its points
+#   k10_simt_chain the CUDA-core kernel's chain rounding skips the rounding
+#                  of the product (bf16 widths it takes; one bf16 rounding
+#                  apart, caught by the roundings' equal shares)
 #   k10_tc_bias    K10's bf16 kernel drops the hidden layers' bias
 #   k10_tc_chain   K10's bf16 kernel swaps the halves of a layer's
 #                  accumulators as it chains them into the next layer's A
 #                  fragments (rows 8-15 of channels 0-7 and rows 0-7 of 8-15)
+#   k10_tc_round   the bf16 kernel's chain rounding rounds the hidden layers
+#                  as the TPU kernel does (caught by the equal shares)
 cd "$(dirname "$0")/.."
 tmp=${TMPDIR:-/tmp}
 only=" $* "
@@ -101,10 +108,17 @@ mutant k5_split_end nn_fused.cuh "$PHASE_PY" "fused_planes or k5_and_k9" \
 mutant k9_dir2_sign chamfer_loss_grad.cu "$PHASE_PY" chamfer_loss \
   's/atomicAdd(g + c, -diff);/atomicAdd(g + c, diff);/'
 mutant k10_bias decode_batch.cu "$PHASE_PY" decode \
-  's/__fadd_rn(a1\[j\], bias\[c\])/a1[j]/'
+  's/rnd<T>(first ? acc : __fadd_rn(acc, b))/rnd<T>(acc)/'
+mutant k10_tile decode_batch.cu "$PHASE_PY" decode \
+  's/av\[p + 2\] = a.z, av\[p + 3\] = a.w;/av[p + 2] = a.w, av[p + 3] = a.z;/'
+mutant k10_simt_chain decode_batch.cu "$PHASE_PY" "decode and wide" \
+  's/rnd<T>(__fadd_rn(rnd<T>(acc), b))/rnd<T>(__fadd_rn(acc, b))/'
 mutant k10_tc_bias decode_batch_tc.cu "$PHASE_PY" decode \
   's/\*reinterpret_cast<const float2\*>(bias + 16 \* nc + 2 \* t)/make_float2(0.f, 0.f)/' \
   's/\*reinterpret_cast<const float2\*>(bias + 16 \* nc + 8 + 2 \* t)/make_float2(0.f, 0.f)/'
 mutant k10_tc_chain decode_batch_tc.cu "$PHASE_PY" decode \
-  's/h\[nc\]\[mt\]\[1\] = pack_relu(acc\[u\]\[0\]\[mt\]\[2\], acc\[u\]\[0\]\[mt\]\[3\])/h[nc][mt][1] = pack_relu(acc[u][1][mt][0], acc[u][1][mt][1])/' \
-  's/h\[nc\]\[mt\]\[2\] = pack_relu(acc\[u\]\[1\]\[mt\]\[0\], acc\[u\]\[1\]\[mt\]\[1\])/h[nc][mt][2] = pack_relu(acc[u][0][mt][2], acc[u][0][mt][3])/'
+  's/h\[nc\]\[mt\]\[2 \* half + 1\] = pack_relu(acc\[u\]\[half\]\[mt\]\[2\], acc\[u\]\[half\]\[mt\]\[3\]);/h[nc][mt][2 * half + 1] = pack_relu(acc[u][half ^ 1][mt][0], acc[u][half ^ 1][mt][1]);/'
+mutant k10_tc_round decode_batch_tc.cu "$PHASE_PY" "decode and chain" \
+  's/const float2 b_lo = chain ? make_float2(0.f, 0.f) : bs\[u\]\[0\];/const float2 b_lo = bs[u][0];/' \
+  's/const float2 b_hi = chain ? make_float2(0.f, 0.f) : bs\[u\]\[1\];/const float2 b_hi = bs[u][1];/' \
+  's/          if (chain) {/          if (false) {/'

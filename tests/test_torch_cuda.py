@@ -521,15 +521,19 @@ def test_chamfer_loss_fused_value_and_grad(cuda):
         chamfer_loss_grad(gts.detach().double(), preds.detach().double())
 
 
-# K10 (ops/decoder.py::decode_batch) vs its plain version: fp32 (CUDA cores,
-# csrc/decode_batch.cu) within 2e-5 (summation order,
-# tests/test_pallas_decoder.py's bound); bf16 (tensor cores,
-# csrc/decode_batch_tc.cu) within one bf16 step of the value or 2e-2 of the
-# output's largest entry (a hidden value near a rounding boundary may round
-# one step apart in the two summation orders and carry that through the
-# later layers).
+# K10 (ops/decoder.py::decode_batch) vs its plain version, in both roundings:
+# fp32 (CUDA cores, csrc/decode_batch.cu) within 2e-5 (summation order,
+# tests/test_pallas_decoder.py's bound; relative to the output's largest entry
+# where it passes 1); bf16 (tensor cores, csrc/decode_batch_tc.cu, or the
+# CUDA-core kernel's bf16 instantiation for wider layers) within one bf16 step
+# of the value or 2e-2 of the output's largest entry (a hidden value near a
+# rounding boundary may round one step apart in the two summation orders and
+# carry that through the later layers).
 
 DECODE_CHANNELS = [(32, 64, 128, 64), (8, 16), (16,), ()]
+# widths the tensor-core kernel cannot hold: a layer wider than 256 channels,
+# weights above a block's shared memory, and the widest layer K10 takes
+WIDE_DECODE_CHANNELS = [(272,), (256, 256), (512, 1024, 512), (4096,), (32, 4096, 32)]
 
 
 def _decode_inputs(channels, use_bias, batch, n, dtype, seed=0):
@@ -626,17 +630,79 @@ def test_decode_batch_kernel_rejects_what_it_cannot_take(cuda):
         decode_batch(flat.double(), pts.double(), (8, 16))
     with pytest.raises(ValueError, match="one device"):
         decode_batch(flat.cpu(), pts, (8, 16))
-    wide, wpts = _decode_inputs((256, 256), True, 1, 64, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
-        decode_batch(wide, wpts, (256, 256))
-    # the bf16 kernel holds at most 256 channels in its register fragments
-    wide, wpts = _decode_inputs((272,), True, 1, 64, torch.bfloat16)
-    with pytest.raises(ValueError, match="wider than 256"):
-        decode_batch(wide, wpts, (272,))
-    # 135 KB of padded weights and the row's 135 KB raw copy, in bf16
-    wide, wpts = _decode_inputs((256, 256), True, 1, 64, torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        decode_batch(wide, wpts, (256, 256))
+    before = decode_batch.launches
+    for channels in ((4097,), (8,) * 16):  # a layer above 4096 channels; 17 layers
+        for dtype in (torch.float32, torch.bfloat16):
+            wide, wpts = _decode_inputs(channels, True, 1, 8, dtype)
+            with pytest.raises(ValueError, match="at most 16 layers of 1 to 4096 channels"):
+                decode_batch(wide, wpts, channels)
+    assert decode_batch.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", DECODE_CHANNELS)
+def test_decode_batch_chain_rounding_matches_reference(cuda, channels, dtype):
+    """``round_product=True``, the model route's rounding, against the plain
+    version's; in bf16 it rounds where the ``bmm`` chain rounds."""
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    flat, pts = _decode_inputs(channels, True, 4, 2048, dtype, seed=7)
+    got = decode_batch(flat, pts, channels, round_product=True)
+    want = decode_batch_reference(flat, pts, channels, round_product=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert _decode_bf16_close(got, want)
+        chain = batched_target_network_forward(flat, pts, list(channels), True)
+        # the same roundings as the chain, so closer to it than the kernel's rounding
+        assert (got.float() - chain.float()).abs().mean() < (
+            decode_batch(flat, pts, channels).float() - chain.float()).abs().mean()
+
+
+@pytest.mark.parametrize("round_product", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", WIDE_DECODE_CHANNELS)
+def test_decode_batch_wide_widths_match_reference(cuda, channels, dtype, round_product):
+    """The CUDA-core kernel at widths the tensor-core kernel cannot hold, its
+    weights resident in shared memory or streamed through it; bf16 counts
+    its launches apart."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
+
+    flat, pts = _decode_inputs(channels, True, 2, 300, dtype, seed=8)
+    flat = flat * 0.25  # keeps the wider layers' outputs of order 1
+    before = (decode_batch.launches, decode_batch.launches_bf16_simt)
+    got = decode_batch(flat, pts, channels, round_product=round_product)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (decode_batch.launches - before[0], decode_batch.launches_bf16_simt - before[1]) == (
+        1, int(bf16))
+    want = decode_batch_reference(flat, pts, channels, round_product=round_product)
+    if bf16:
+        assert _decode_bf16_close(got, want)
+        # one rounding apart stays inside the gate: the outputs equal their own
+        # rounding's plain version more often than the other's
+        other = decode_batch_reference(flat, pts, channels, round_product=not round_product)
+        assert (got == want).float().mean() > (got == other).float().mean()
+    else:
+        limit = 2e-5 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=limit)
+
+
+@pytest.mark.parametrize("first", [1, 2, 3, 5])
+def test_decode_batch_fp32_rows_that_start_4_byte_aligned(cuda, first):
+    """An fp32 row is 76,044 bytes at the chair widths, so a sample's row
+    starts 4, 8 or 12 bytes off a 16-byte boundary: the kernel copies rows
+    from the boundary below. The batch from sample ``first`` on gives the
+    whole batch's bits for those samples."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+
+    channels = (32, 64, 128, 64)
+    flat, pts = _decode_inputs(channels, True, 8, 300, torch.float32, seed=3)
+    whole = decode_batch(flat, pts, channels)
+    part = decode_batch(flat[first:], pts[first:], channels)
+    assert flat[first:].data_ptr() % 16 != 0
+    assert torch.equal(part, whole[first:])
 
 
 def test_decode_op_opcheck_on_cuda(cuda):
@@ -684,24 +750,43 @@ def test_a_served_request_launches_k10_once(cuda, dtype):
     assert decode_batch.launches == before and rec.shape == (4, 2048, 3)
 
 
-def test_inference_with_widths_k10_cannot_take_raises(cuda):
-    """The route is decided by dtype and training mode alone: a bf16 model
-    whose target layer is wider than the kernel takes raises on the card
-    before any launch, and does not decode through the ``bmm`` chain."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inference_with_widths_k10_cannot_take_raises(cuda, dtype):
+    """Widths the tensor-core kernel cannot hold no longer raise: the
+    inference forward of a model with a 272-channel target layer decodes
+    through K10 once (bf16 on the CUDA-core kernel), with the chain's
+    rounding, within K10's gates of the plain version on its own flat
+    weights."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
-    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
 
     cfg = _settings("config_3depn_chair.json")["full_model"]
-    cfg["compute_dtype"] = "bfloat16"
+    cfg["compute_dtype"] = dtype
     cfg["target_network"]["layer_out_channels"] = [272]
     model = FullModel.from_config(cfg, torch.Generator().manual_seed(6)).to(cuda)
+    cd = model.compute_torch_dtype
     existing = _points(2, 1024, seed=15)
-    noise = torch.zeros((2, model.get_noise_size()), device=cuda)
-    before = decode_batch.launches
-    with pytest.raises(ValueError, match="wider than 256"):
-        model.apply(existing, existing, torch.Generator(device=cuda).manual_seed(1), 1.0,
-                    num_output_points=64, training=False, noise=noise)
-    assert decode_batch.launches == before
+    noise = torch.randn((2, model.get_noise_size()), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(16)) * 0.13
+    balls = torch.rand((2, 512, 3), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(17)) - 0.5
+    before = (decode_batch.launches, decode_batch.launches_bf16_simt)
+    out = model.apply(existing, existing, None, 1.0, num_output_points=512, training=False,
+                      noise=noise, ball_points=balls)
+    torch.cuda.synchronize()
+    assert (decode_batch.launches - before[0], decode_batch.launches_bf16_simt - before[1]) == (
+        1, int(dtype == "bfloat16"))
+    with torch.no_grad():
+        latent, _, _ = model._get_latent(existing.to(cd), existing.to(cd), None, False,
+                                         noise.to(cd), None)
+        want = decode_batch_reference(model.hyper_network(latent), balls.to(cd), [272], True,
+                                      round_product=True).float()
+    assert out.shape == (2, 512, 3) and bool(torch.isfinite(out).all())
+    if dtype == "bfloat16":
+        assert _decode_bf16_close(out, want)
+    else:
+        limit = 2e-5 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=limit)
 
 
 # K8 (ops/trunk_pool.py::trunk_pooled_argmax): the pooled values are K4's,

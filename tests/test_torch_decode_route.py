@@ -6,9 +6,10 @@ held to it on the card in tests/test_torch_cuda.py). The port's
 to the JAX package's ``apply(training=False)``, which keeps its ``bmm``
 chain, on shared weights, ball points and noise: fp32 within 1e-5 (the
 parity budget; the two sum the hidden layers in another order), bf16 within
-5% of the output's largest magnitude (tests/test_torch_models.py's budget:
-the op rounds each layer once, the chain its product and then its sum). The
-training forward and fp64 and fp16 keep the chain.
+5% of the output's largest magnitude (tests/test_torch_models.py's budget;
+the route asks the op for the chain's rounding, the product rounded and
+then its sum with the bias, and tests/test_torch_rounding.py holds it at
+seeds 0-11). The training forward and fp64 and fp16 keep the chain.
 """
 
 from __future__ import annotations

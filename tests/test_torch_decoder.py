@@ -23,6 +23,7 @@ from hyperpocket_tpu_torch.models.target_network import batched_target_network_f
 from hyperpocket_tpu_torch.ops import decoder
 
 CHANNELS = [(32, 64, 128, 64), (8, 16), (16,), ()]
+WIDE_CHANNELS = [(272,), (256, 256), (512, 1024, 512)]
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
 
 
@@ -56,6 +57,25 @@ def test_decode_batch_reference_matches_pallas_interpret(channels, use_bias, dty
     # and the model's own bmm chain on the same inputs
     chain = batched_target_network_forward(tflat, tpts, list(channels), use_bias)
     np.testing.assert_allclose(got.float().numpy(), chain.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", WIDE_CHANNELS)
+def test_decode_batch_reference_matches_pallas_interpret_at_wide_widths(channels, dtype):
+    """Widths the card's bf16 tensor-core kernel cannot hold (a layer wider
+    than 256 channels, or weights above a block's shared memory), which the
+    CUDA-core kernel takes, within the bounds above taken relative to the
+    output's largest entry; the weights are scaled down so that the wider
+    layers do not grow the outputs."""
+    flat, pts = _random_inputs(channels, True, batch=2, n=32, seed=4)
+    flat = flat * 0.25
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jdec.decode_batch(jnp.asarray(flat, jdt), jnp.asarray(pts, jdt), channels, True,
+                             interpret=True)
+    got = decoder.decode_batch(torch.tensor(flat).to(tdt), torch.tensor(pts).to(tdt), channels)
+    want = np.asarray(want, np.float32)
+    tol = TOL[dtype] * np.abs(want).max()  # the outputs' scale is ~0.15
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
 def test_decode_batch_reference_takes_the_weights_in_the_points_dtype():
