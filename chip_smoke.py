@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, artifact, training, experiments and CLI paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, artifact, training, experiments, CLI and parallel paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
@@ -182,6 +182,24 @@ Phases, each fatal on any error:
    through ``get_datasets``; where it is not, one line says so.
    Phases 19-21 print their wall time.
 
+22-25. the parallel layer (``parallel/``), each over a one-rank NCCL group
+   on a file store in the phase's temp dir (NCCL takes one rank per card:
+   larger worlds are proven on the CPU, over gloo). 22: a ``Trainer`` with
+   ``use_mesh=True`` and the one-process Trainer on the full-width chair
+   config in fp32, one epoch of 3 steps at B=64 on a 192-item 3D-EPN corpus
+   the smoke writes and its val epoch each, with deterministic algorithms
+   (K2's ``index_add_`` sums by CUDA atomics otherwise): losses, parameters
+   and val loss bit-equal; K1 twice a step, K3 and K10 once a val batch;
+   both step times, with the default algorithms.
+   23: ``chamfer_loss_point_sharded`` at B=64, 2048x2048 (K1 twice) and
+   1024x2048 (K5 once) against the plain ``chamfer_loss`` by phase 7's
+   gates, timed beside ``chamfer_loss_streaming`` and the plain loss. 24:
+   ``pairwise_emd_cd_multi(mesh=)`` on one 512-pair dispatch (N=M=1024):
+   every pair equal to the unsharded call's, K6 and K3 once. 25:
+   ``make_serving_fn(mesh=)`` and a ``data_parallel=1`` artifact in bf16 at
+   B=256, bit-equal to ``make_serving_fn`` and to the plain artifact, in
+   clouds/s beside them. Phases 22-25 print their wall time.
+
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
 B=256 and B=64 (and the bf16 artifact of phase 19 at both), one fp32 and
 one bf16 train step at B=64 (the bf16 one also with K8 and with K11's
@@ -245,6 +263,7 @@ HEAD_SHARE = 1e-4
 HEAD_N, HEAD_K = 19011, 2048
 FUSED_STEP_RTOL = 1e-2  # bf16 compute: autograd rounds dW to bf16, K11 keeps it fp32
 TRAIN_MODELS, TRAIN_SAMPLES = 32, 4  # 128 train items: 2 steps of B=64 an epoch
+DP_TRAIN_STEPS = 3  # phase 22's epoch: 48 chairs x 4 halves at B=64
 # the H100 SXM's published peaks: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores and the fp32
 # issue rate (instructions/s, half the FMA-counted FLOP/s)
@@ -1340,8 +1359,8 @@ def drive_experiments(model32, device, tmp: Path) -> dict:
     return out
 
 
-def write_train_corpus(root: Path) -> None:
-    """A 3D-EPN train tree of TRAIN_MODELS chairs: ``slices/gt`` (2048 points)
+def write_train_corpus(root: Path, n_models: int = TRAIN_MODELS) -> None:
+    """A 3D-EPN train tree of ``n_models`` chairs: ``slices/gt`` (2048 points)
     and TRAIN_SAMPLES existing/missing halves of 1024 points each, cut by a
     random plane, as the slicer writes them; the split CSV labels every
     model ``train`` (3D-EPN's val split lists the same slices)."""
@@ -1351,7 +1370,7 @@ def write_train_corpus(root: Path) -> None:
     for kind in ("gt", "existing", "missing"):
         (root / "slices" / kind / EVAL_CATEGORY).mkdir(parents=True)
     rows = ["id,synsetId,modelId,split"]
-    for i in range(TRAIN_MODELS):
+    for i in range(n_models):
         name = f"train{i:03d}"
         gt = _eval_shape(rng, N_OUT)
         save_ply(root / "slices" / "gt" / EVAL_CATEGORY / f"{name}.ply", gt)
@@ -2266,6 +2285,259 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: the parallel layer over a one-rank NCCL group. NCCL takes one
+# rank per card, so world sizes above 1 are proven on the CPU only (gloo,
+# tests/test_torch_parallel_*.py); here every collective of the data-parallel
+# code runs, over one rank.
+
+
+@contextlib.contextmanager
+def one_rank_group(tmp: Path):
+    """A one-rank NCCL group over a file store in ``tmp``, left at the end."""
+    from hyperpocket_tpu_torch.parallel import distributed
+
+    check(distributed.initialize_multihost(f"file://{tmp}/store", 1, 0, device="cuda"),
+          "the one-rank NCCL group did not come up")
+    check(torch.distributed.get_backend() == "nccl",
+          f"backend {torch.distributed.get_backend()}")
+    try:
+        yield
+    finally:
+        distributed.shutdown()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` inside the block: K2's
+    ``index_add_`` then sums in a fixed order (by default its CUDA atomics
+    make two runs of one step differ in the last bits)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _counts(kernels: dict) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _reset(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def drive_dp_trainer(device, tmp: Path) -> dict:
+    """Phase 22: a data-parallel ``Trainer`` (``use_mesh=True``) against the
+    one-process Trainer on the full-width chair config in fp32: one epoch of
+    DP_TRAIN_STEPS steps at B=64 and its val epoch each, from the same seed,
+    with deterministic algorithms; losses and parameters bit-equal. Step
+    times of both at B=64, with the default algorithms."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.train import trainer as trainer_mod
+
+    kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
+               "decode_batch": decode_batch}
+    data = tmp / "train_data"
+    write_train_corpus(data, DP_TRAIN_STEPS * TRAIN_BATCH // TRAIN_SAMPLES)
+    runs = {}
+    with one_rank_group(tmp):
+        for tag, use_mesh in (("one_process", None), ("data_parallel", True)):
+            config = json.loads(CONFIG.read_text())
+            config["dataset"]["path"] = str(data)
+            config["results_root"] = str(tmp / tag)
+            t = trainer_mod.Trainer(config, device=device, use_mesh=use_mesh)
+            check((t.mesh is not None) == bool(use_mesh), f"{tag}: mesh {t.mesh}")
+            _reset(kernels)
+            with inference_forwards() as forwards, deterministic():
+                stats, _ = t.train_epoch(1)
+                torch.cuda.synchronize()
+                train_counts = _counts(kernels)
+                _reset(kernels)
+                val, _ = t.val_epoch(1)
+                torch.cuda.synchronize()
+            val_counts = _counts(kernels)
+            rows = np.asarray(t.last_step_losses)
+            params = [p.detach().clone() for p in t.model.parameters()]
+            batch = train_batch(t.model, TRAIN_BATCH, SEED + 30, device)
+            timing = step_ms(lambda i, t=t: t.train_step(
+                batch["existing"], batch["missing"], batch["gt"], t._next_generator(), 1.0,
+                N_OUT))
+            runs[tag] = {"rows": rows, "params": params, "val": float(val["total"][0]),
+                         "train_launches": train_counts, "val_launches": val_counts,
+                         "val_forwards": len(forwards), "step": timing}
+            print(f"dp trainer {tag}: losses per step {rows.tolist()}, val {runs[tag]['val']!r}; "
+                  f"launches in {len(rows)} train steps {train_counts}, in the val epoch "
+                  f"{val_counts} ({len(forwards)} inference forwards); train step "
+                  f"{json.dumps(timing)}")
+            check(len(rows) == DP_TRAIN_STEPS and np.isfinite(rows).all(),
+                  f"{tag}: {len(rows)} steps, losses {rows.tolist()}")
+            check(train_counts == {"nn_one_direction": 2 * DP_TRAIN_STEPS, "nn_min_fused": 0,
+                                   "decode_batch": 0}, f"{tag}: train launches {train_counts}")
+            check(val_counts["nn_min_fused"] == len(forwards) == val_counts["decode_batch"] > 0,
+                  f"{tag}: val launches {val_counts}, {len(forwards)} forwards")
+            del t
+            torch.cuda.empty_cache()
+    one, dp = runs["one_process"], runs["data_parallel"]
+    check(np.array_equal(one["rows"], dp["rows"]), "DP step losses differ from one process")
+    check(all(torch.equal(a, b) for a, b in zip(one["params"], dp["params"])),
+          "DP parameters after the epoch differ from one process")
+    check(one["val"] == dp["val"], f"DP val loss {dp['val']} vs {one['val']}")
+    print("dp trainer: losses, parameters and val loss bit-equal to one process")
+    return {tag: {k: v for k, v in r.items() if k != "params"} | {"rows": r["rows"].tolist()}
+            for tag, r in runs.items()}
+
+
+def drive_ring(device, tmp: Path) -> dict:
+    """Phase 23: ``chamfer_loss_point_sharded`` at B=64, 2048x2048 (K1 twice a
+    hop) and 1024x2048 (K5 once a hop) against the plain ``chamfer_loss``:
+    value within CHAMFER_RTOL, gradients by phase 7's near-tie rules; timed
+    beside ``chamfer_loss_streaming`` and the plain loss."""
+    from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
+    from hyperpocket_tpu_torch.ops.nn import (
+        chamfer_loss_streaming,
+        nn_fused_planes,
+        nn_one_direction,
+    )
+    from hyperpocket_tpu_torch.parallel.point_sharding import chamfer_loss_point_sharded
+
+    kernels = {"nn_one_direction": nn_one_direction, "nn_fused_planes": nn_fused_planes}
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    out = {}
+    with one_rank_group(tmp):
+        for n, m, want in ((N_OUT, N_OUT, {"nn_one_direction": 2, "nn_fused_planes": 0}),
+                           (N_EXISTING, N_OUT, {"nn_one_direction": 0, "nn_fused_planes": 1})):
+            name = f"B{TRAIN_BATCH}_{n}x{m}"
+            gts = torch.randn((TRAIN_BATCH, n, 3), generator=gen, device=device) * 0.3
+            preds = (torch.randn((TRAIN_BATCH, m, 3), generator=gen, device=device) * 0.3)
+            preds.requires_grad_()
+
+            def value_and_grad(loss_fn):
+                loss = loss_fn(gts, preds)
+                return loss, torch.autograd.grad(loss, preds)[0]
+
+            _reset(kernels)
+            got, g_got = value_and_grad(chamfer_loss_point_sharded)
+            torch.cuda.synchronize()
+            launches = _counts(kernels)
+            want_v, g_want = value_and_grad(chamfer_loss)
+            rel = abs(got.item() - want_v.item()) / abs(want_v.item())
+            print(f"ring {name}: value {got.item()!r} vs plain {want_v.item()!r} "
+                  f"(relative {rel!r}); launches {launches}")
+            check(launches == want, f"ring {name}: launches {launches}, expected {want}")
+            check(rel <= CHAMFER_RTOL, f"ring {name}: value relative error {rel}")
+            res = grad_vs_plain(gts, preds, g_got, g_want, f"ring {name}")
+            res.update(rel=rel, launches=launches,
+                       ring_ms=cuda_ms(lambda: value_and_grad(chamfer_loss_point_sharded)),
+                       streaming_ms=cuda_ms(lambda: value_and_grad(chamfer_loss_streaming)),
+                       plain_ms=cuda_ms(lambda: value_and_grad(chamfer_loss), iters=3))
+            print(f"ring {name} value_and_grad: ring {res['ring_ms']!r} ms, chamfer_loss_streaming "
+                  f"{res['streaming_ms']!r} ms, plain {res['plain_ms']!r} ms")
+            out[name] = res
+            del gts, preds, g_got, g_want
+            torch.cuda.empty_cache()
+    return out
+
+
+def drive_sharded_pairs(device, tmp: Path) -> dict:
+    """Phase 24: ``pairwise_emd_cd_multi(mesh=)`` on one 512-pair dispatch
+    (N=M=1024) against the unsharded call: every pair's CD and EMD equal; K6
+    and K3 once each; both timed."""
+    from hyperpocket_tpu_torch.eval.metrics import pairwise_emd_cd_multi
+    from hyperpocket_tpu_torch.ops.emd import match_cost_fwd_kernel
+    from hyperpocket_tpu_torch.ops.nn import nn_min_fused
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    kernels = {"emd_match_cost": match_cost_fwd_kernel, "nn_min_fused": nn_min_fused}
+    rng = np.random.default_rng(SEED + 32)
+    rows = np.stack([_eval_shape(rng, N_EXISTING) for _ in range(EVAL_OBJECTS)])
+    cols = np.stack([np.stack([_eval_shape(rng, N_EXISTING) for _ in range(EVAL_OBJECTS)])
+                     for _ in range(2)])  # 2 x 16 x 16 = 512 pairs
+    with one_rank_group(tmp):
+        mesh = make_mesh(1, 1)
+        want = pairwise_emd_cd_multi(rows, cols, 512, device=device)
+        _reset(kernels)
+        got = pairwise_emd_cd_multi(rows, cols, 512, device=device, mesh=mesh)
+        launches = _counts(kernels)
+        check(launches == {"emd_match_cost": 1, "nn_min_fused": 1},
+              f"sharded pairs: launches {launches}")
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        print(f"sharded pairs: 512 pairs, CD and EMD equal to the unsharded call: {same}; "
+              f"launches {launches}")
+        check(same, "sharded pair matrices differ from the unsharded call")
+        check(all(np.isfinite(g).all() for g in got), "sharded pairs: non-finite values")
+
+        def timed(**kw):
+            t0 = time.perf_counter()
+            pairwise_emd_cd_multi(rows, cols, 512, device=device, **kw)
+            return 1e3 * (time.perf_counter() - t0)
+
+        timed(mesh=mesh)
+        ms = {"mesh_ms": statistics.median(timed(mesh=mesh) for _ in range(5)),
+              "unsharded_ms": statistics.median(timed() for _ in range(5))}
+    print(f"sharded pairs wall per 512-pair call: {json.dumps(ms)}")
+    return {"equal": same, "launches": launches, **ms}
+
+
+def drive_dp_serving(model, device, tmp: Path) -> dict:
+    """Phase 25: data-parallel ``make_serving_fn`` and a ``data_parallel=1``
+    artifact in bf16 at B=256: the DP function bit-equal to ``make_serving_fn``,
+    the DP artifact to the plain artifact (and within phase 19's gate of
+    ``make_serving_fn``); K4 and K10 once a request; clouds/s of each."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    kernels = {"trunk_pool": trunk_pooled, "decode_batch": decode_batch}
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    existing = torch.randn((BENCH_BATCH, N_EXISTING, 3), generator=gen, device=device) * 0.3
+    noise = torch.randn((BENCH_BATCH, model.get_noise_size()), generator=gen,
+                        device=device) * 0.13
+    kw = dict(batch=BENCH_BATCH, n_existing=N_EXISTING, num_output_points=N_OUT, device=device)
+    out = {}
+    plain = serving.make_serving_fn(model, num_output_points=N_OUT, device=device)
+    plain_artifact = serving.load_completion(serving.export_completion(model, **kw))
+    with one_rank_group(tmp):
+        dp = serving.make_serving_fn(model, num_output_points=N_OUT, device=device,
+                                     mesh=make_mesh(1, 1))
+        path = tmp / f"dp1{serving.ARTIFACT_SUFFIX}"
+        path.write_bytes(serving.export_completion(model, data_parallel=1, **kw))
+        dp_artifact = serving.load_completion(path.read_bytes())
+        check(dp_artifact.meta["data_parallel"] == 1, f"meta {dp_artifact.meta}")
+        want = plain(existing, noise, 41)
+        want_artifact = plain_artifact(existing, noise, 41)
+        _reset(kernels)
+        got = dp(existing, noise, 41)
+        got_artifact = dp_artifact(existing, noise, 41)
+        torch.cuda.synchronize()
+        launches = _counts(kernels)
+        check(launches == {"trunk_pool": 2, "decode_batch": 2},
+              f"dp serving: two requests launched {launches}")
+        check(torch.equal(got, want), "DP make_serving_fn differs from make_serving_fn")
+        check(torch.equal(got_artifact, want_artifact), "DP artifact differs from the artifact")
+        err = ((got_artifact - want).abs().max() / want.abs().max()).item()
+        bit_equal = torch.equal(got_artifact, want)
+        print(f"dp serving bf16 B={BENCH_BATCH}: make_serving_fn(mesh=) bit-equal to "
+              f"make_serving_fn; the data_parallel=1 artifact bit-equal to the artifact, "
+              f"and to make_serving_fn: {bit_equal} (max |diff| / max |out| {err!r}, "
+              f"limit {KERNEL_ATOL}); launches {launches}")
+        check(err <= KERNEL_ATOL, f"dp artifact vs make_serving_fn {err}")
+        out.update(launches=launches, artifact_vs_serving_fn_rel=err,
+                   artifact_bit_equal_serving_fn=bit_equal)
+        for tag, fn in (("serving_fn", plain), ("serving_fn_dp", dp),
+                        ("artifact", plain_artifact), ("artifact_dp", dp_artifact)):
+            rate = clouds_per_s(lambda s, fn=fn: fn(existing, noise, s), BENCH_BATCH)
+            out[f"{tag}_clouds_per_s"] = rate["clouds_per_s"]
+            out[f"{tag}_window_clouds_per_s"] = rate["window_clouds_per_s"]
+        del dp_artifact
+    print(f"dp serving clouds/s B={BENCH_BATCH}: " + json.dumps(
+        {k: v for k, v in out.items() if k.endswith("clouds_per_s") and "window" not in k}))
+    return out
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -2393,6 +2665,10 @@ def main(argv=None) -> int:
     ptxas_check(log, "decode_batch_tc_kernel", "bf16 decode")
     ptxas_check(log, "decode_batch_kernel", "CUDA-core decode")
 
+    from hyperpocket_tpu_torch.data import plyio
+
+    # the JAX package's dispatch: the native library where it loads, else numpy
+    print(f"PLY reader: {plyio.reader()}")
     config, model = build_model("bfloat16")
     model32 = copy.deepcopy(model)
     model32.compute_dtype = "float32"
@@ -2443,6 +2719,19 @@ def main(argv=None) -> int:
         print(f"{name}: {json.dumps(res)} on {card}")
         torch.cuda.empty_cache()
     print(f"phases 19-21 wall s: {json.dumps(walls)}")
+    walls = {}
+    parallel = {}
+    for name, phase in (("dp_trainer", lambda tmp: drive_dp_trainer(device, tmp)),
+                        ("ring", lambda tmp: drive_ring(device, tmp)),
+                        ("sharded_pairs", lambda tmp: drive_sharded_pairs(device, tmp)),
+                        ("dp_serving", lambda tmp: drive_dp_serving(model, device, tmp))):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            parallel[name] = phase(Path(tmp))
+        walls[name] = time.perf_counter() - t0
+        print(f"{name}: {json.dumps(parallel[name])} on {card}")
+        torch.cuda.empty_cache()
+    print(f"phases 22-25 wall s: {json.dumps(walls)}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")

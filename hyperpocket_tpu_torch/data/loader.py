@@ -1,8 +1,9 @@
 """Host-side batch loader: seeded shuffling, threaded prefetch, numpy collation.
 
-A copy of ``hyperpocket_tpu/data/loader.py`` (numpy and threads), without
-its multi-host sharding (``process_shard``), which comes with the
-parallelism slice.
+A copy of ``hyperpocket_tpu/data/loader.py`` (numpy and threads).
+``process_shard=(index, count)`` makes each process load only its rows of
+every global batch; the data-parallel Trainer passes its data-axis
+coordinate.
 
 The replacement for the reference's torch DataLoader usage
 (core/main.py:91-93): per-epoch deterministic shuffling keyed on
@@ -52,6 +53,7 @@ class BatchLoader:
         seed: int = 0,
         num_workers: int = 8,
         prefetch: int = 2,
+        process_shard: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = int(batch_size)
@@ -60,6 +62,18 @@ class BatchLoader:
         self.seed = seed
         self.num_workers = max(0, int(num_workers))
         self.prefetch = max(1, int(prefetch))
+        # each process loads its slice of every global batch; shuffling stays
+        # keyed on (seed, epoch) only, so all processes agree on the order
+        self.process_index, self.process_count = process_shard
+        if self.process_count > 1:
+            if self.batch_size % self.process_count:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by process_count {self.process_count}"
+                )
+            if not drop_last:
+                # a short final batch would split unevenly or leave some
+                # processes a step short, and the next collective would hang
+                raise ValueError("multi-host sharded loading requires drop_last=True")
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -75,6 +89,11 @@ class BatchLoader:
         batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.process_count > 1:
+            per_host = self.batch_size // self.process_count
+            start = self.process_index * per_host
+            batches = [b[start : start + per_host] for b in batches]
+            batches = [b for b in batches if len(b)]
         return batches
 
     def epoch(self, epoch: int = 0) -> Iterator[tuple]:

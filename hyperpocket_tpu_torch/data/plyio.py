@@ -6,6 +6,8 @@ package so that the port runs without importing the JAX package:
 * ``load_ply`` reads the vertex x/y/z as (N, 3) float32 from ascii,
   binary_little_endian or binary_big_endian files, skipping the payload of
   any list property on the vertex element or on the elements before it;
+  like the JAX package's, it tries the native reader (``data/native.py``)
+  first and takes the numpy parser where that does not load or parse;
 * ``save_ply`` writes binary little-endian float x/y/z, byte for byte the
   JAX package's layout;
 * ``save_ply_elements`` / ``load_ply_elements`` write and read any
@@ -62,7 +64,31 @@ def _parse_header(f) -> tuple[str, list[tuple[str, int, list[tuple[str, str]]]]]
 
 
 def load_ply(path: str | os.PathLike) -> np.ndarray:
-    """Read the vertex x/y/z columns of a PLY file -> (N, 3) float32."""
+    """Read the vertex x/y/z columns of a PLY file -> (N, 3) float32.
+
+    The native C++ reader (``data/native.py``) when it loads (binary
+    little-endian files), the numpy parser for everything else, as in the
+    JAX package.
+    """
+    from hyperpocket_tpu_torch.data import native
+
+    if native.available():
+        try:
+            return native.load_ply(path)
+        except Exception:
+            pass  # ascii/odd files: numpy path below
+    return _load_ply_numpy(path)
+
+
+def reader() -> str:
+    """Which reader ``load_ply`` tries first: ``"native"`` or ``"numpy"``."""
+    from hyperpocket_tpu_torch.data import native
+
+    return "native" if native.available() else "numpy"
+
+
+def _load_ply_numpy(path: str | os.PathLike) -> np.ndarray:
+    """The numpy PLY reader: x/y/z of the vertex element -> (N, 3) float32."""
     with open(path, "rb") as f:
         fmt, elements = _parse_header(f)
         names = [e[0] for e in elements]

@@ -20,8 +20,14 @@ same two methods: ``noise(seed, batch, mean, std, source)``, the latent
 codes (the JAX context's ``_noise``/``_noise_prior``), and ``balls(seed,
 batch, num_points, epoch)``, the target network's input points.
 
-Not ported: ``make_tsne_reduction`` (not registered in the JAX package
-either) and ``save_plots=True``; both raise ``NotImplementedError``.
+``make_tsne_reduction`` (scikit-learn's t-SNE) is not registered, as in
+the JAX package. ``fixed(save_plots=True)`` renders through
+``utils/plotting.py`` (matplotlib).
+
+Under a process group every rank runs every experiment on the same draws,
+so the counters stay in step; ``evaluate_generativity(parallel_data=N)``
+shares its pair matrices over an N-rank data mesh. Rank 0 alone writes
+the artifacts, and the ranks meet at a barrier after each experiment.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 from hyperpocket_tpu_torch.data.loader import BatchLoader
 from hyperpocket_tpu_torch.data.slicer import slice_point_cloud
 from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+from hyperpocket_tpu_torch.parallel import distributed
 from hyperpocket_tpu_torch.serving import resolve_device
 
 log = logging.getLogger("hyperpocket_tpu_torch.experiments")
@@ -162,11 +169,39 @@ class ExperimentContext:
                                                 device=self.device)
 
 
-def _plots_not_ported(save_plots: bool) -> None:
-    if save_plots:
-        raise NotImplementedError(
-            "save_plots=True needs the plotting helpers, not ported yet (ROADMAP.md, "
-            "open items: 'plots')")
+def _out_dir(path: str, fresh: bool = False) -> str:
+    """An artifact directory, made (emptied first with ``fresh``) by rank 0 alone."""
+    if distributed.is_main_process():
+        if fresh:
+            shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _save(path: str, arr) -> None:
+    """``np.save`` on rank 0; the other ranks computed the same array."""
+    if distributed.is_main_process():
+        np.save(path, arr)
+
+
+def _save_json(path: str, obj) -> None:
+    if distributed.is_main_process():
+        with open(path, "w") as fh:
+            json.dump(obj, fh)
+
+
+def _save_cloud_plot(cloud: np.ndarray, path: str) -> None:
+    """(N, 3) cloud -> png in the unit sphere's frame (rank 0)."""
+    if not distributed.is_main_process():
+        return
+    import matplotlib.pyplot as plt
+
+    from hyperpocket_tpu_torch.utils.plotting import plot_3d_point_cloud
+
+    fig = plot_3d_point_cloud(cloud[:, 0], cloud[:, 1], cloud[:, 2], in_u_sphere=True,
+                              show=False)
+    fig.savefig(path)
+    plt.close(fig)
 
 
 # ---------------------------------------------------------------------------
@@ -178,12 +213,10 @@ def fixed(ctx: ExperimentContext, datasets_dict, results_dir: str, epoch, amount
     """Reference core/experiments.py:23-60; artifacts are (3, N) npy files.
 
     ``triangulation_config`` and ``amount`` are accepted and ignored, as in
-    the reference (its loop covers the whole dataset).
+    the reference (its loop covers the whole dataset). ``save_plots`` also
+    renders each completion and each existing half as a png.
     """
-    _plots_not_ported(save_plots)
-    out_dir = join(results_dir, "fixed")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _out_dir(join(results_dir, "fixed"), fresh=True)
     for cat_name, ds in datasets_dict.items():
         loader = BatchLoader(ds, batch_size, shuffle=False, num_workers=4)
         for i, (existing, _, _, _) in enumerate(loader.epoch(0)):
@@ -191,11 +224,15 @@ def fixed(ctx: ExperimentContext, datasets_dict, results_dir: str, epoch, amount
                 noise = ctx.sample_noise(existing.shape[0], mean, std, source=noise_source)
                 rec = ctx.complete(existing, noise, num_points=num_points)  # (B, P, 3)
                 for k in range(rec.shape[0]):
-                    np.save(join(out_dir, f"{cat_name}_{i * batch_size + k}_{j}_reconstruction"),
-                            rec[k].T)
+                    stem = join(out_dir, f"{cat_name}_{i * batch_size + k}_{j}")
+                    _save(f"{stem}_reconstruction", rec[k].T)
+                    if save_plots:
+                        _save_cloud_plot(rec[k], f"{stem}_fixed_reconstructed.png")
             for k in range(existing.shape[0]):
-                np.save(join(out_dir, f"{cat_name}_{i * batch_size + k}_existing"),
-                        existing[k].T)
+                stem = join(out_dir, f"{cat_name}_{i * batch_size + k}")
+                _save(f"{stem}_existing", existing[k].T)
+                if save_plots:
+                    _save_cloud_plot(existing[k], f"{stem}_existing.png")
 
 
 def _generate_completion_sets(ctx: ExperimentContext, existing_objs, n_gen: int,
@@ -257,8 +294,9 @@ def evaluate_generativity(ctx: ExperimentContext, datasets_dict, results_dir: st
     pairs each. ``object_group_clouds`` bounds the completions held at once.
     ``num_workers`` is accepted for the config schema and unused.
     ``include_1nna`` adds the 1-NN accuracies the reference computes but
-    leaves out. ``parallel_data`` > 1 (sharding the matrix builds over
-    devices) is not ported.
+    leaves out. ``parallel_data`` = N > 1 shares the matrix builds over an
+    N-rank data mesh (``pairwise_emd_cd_multi(mesh=)``; per-pair values
+    unchanged); N above the process group's world size raises.
     """
     from hyperpocket_tpu_torch.eval.metrics import (
         entropy_of_occupancy_grid,
@@ -269,11 +307,16 @@ def evaluate_generativity(ctx: ExperimentContext, datasets_dict, results_dir: st
         pairwise_emd_cd_multi,
     )
 
+    mesh = None
     if parallel_data and int(parallel_data) > 1:
-        raise NotImplementedError(
-            "parallel_data > 1 shards the matrix builds over devices, which comes with the "
-            "parallelism slice (ROADMAP.md, open items: 'parallel_data')")
-    os.makedirs(join(results_dir, "evaluate_generativity"), exist_ok=True)
+        from hyperpocket_tpu_torch.parallel.mesh import make_mesh
+
+        world = distributed.world_size()
+        if int(parallel_data) > world:
+            raise ValueError(f"evaluate_generativity.parallel_data={parallel_data} needs "
+                             f"{parallel_data} ranks; the process group has {world}")
+        mesh = make_mesh(int(parallel_data), 1)
+    _out_dir(join(results_dir, "evaluate_generativity"))
     results: dict[str, dict] = {}
     for cat_name, ds in datasets_dict.items():
         if len(ds) == 0:
@@ -299,7 +342,13 @@ def evaluate_generativity(ctx: ExperimentContext, datasets_dict, results_dir: st
         cat_results: dict[str, float] = {}
         group = max(1, object_group_clouds // max(n_gen, 1))
         if include_1nna:
-            m_rr_cd, m_rr_emd = pairwise_emd_cd(cat_gt, cat_gt, batch_size, device=ctx.device)
+            if mesh is not None:  # the same pair work the mesh shares, per-pair values equal
+                rr = pairwise_emd_cd_multi(cat_gt, cat_gt[None], dispatch_clouds,
+                                           device=ctx.device, mesh=mesh)
+                m_rr_cd, m_rr_emd = torch.as_tensor(rr[0][0]), torch.as_tensor(rr[1][0])
+            else:
+                m_rr_cd, m_rr_emd = pairwise_emd_cd(cat_gt, cat_gt, batch_size,
+                                                    device=ctx.device)
         for o0 in range(0, len(ds), group):
             objs = existing_objs[o0:o0 + group]
             with ctx.timed("completion_s"):
@@ -308,11 +357,12 @@ def evaluate_generativity(ctx: ExperimentContext, datasets_dict, results_dir: st
                 recs = _lowest_y_1024(recs)
             with ctx.timed("matrices_s"):  # of which cd_s and emd_s in the pair ops
                 m_rs_cd, m_rs_emd = pairwise_emd_cd_multi(cat_gt, recs, dispatch_clouds,
-                                                          device=ctx.device, timings=ctx.timings)
+                                                          device=ctx.device, timings=ctx.timings,
+                                                          mesh=mesh)
                 per_object = mmd_cov_multi(m_rs_cd, m_rs_emd)
             if include_1nna:
                 m_ss_cd, m_ss_emd = pairwise_emd_cd_multi(recs, recs, dispatch_clouds,
-                                                          device=ctx.device)
+                                                          device=ctx.device, mesh=mesh)
                 for tag, m_rr, m_rs, m_ss in (("CD", m_rr_cd, m_rs_cd, m_ss_cd),
                                               ("EMD", m_rr_emd, m_rs_emd, m_ss_emd)):
                     res = knn_batch_1nna(m_rr.cpu(), torch.as_tensor(m_rs),
@@ -330,9 +380,8 @@ def evaluate_generativity(ctx: ExperimentContext, datasets_dict, results_dir: st
         results[cat_name] = cat_results
         log.info("%s %s", cat_name, cat_results)
 
-    with open(join(results_dir, "evaluate_generativity", f"{epoch}eval_gen_by_cat.json"),
-              "w") as fh:
-        json.dump(results, fh)
+    _save_json(join(results_dir, "evaluate_generativity", f"{epoch}eval_gen_by_cat.json"),
+               results)
     return results
 
 
@@ -341,7 +390,7 @@ def compute_mmd_tmd_uhd(ctx: ExperimentContext, datasets_dict, results_dir: str,
     """Reference core/experiments.py:107-128; reads the fixed/ directory."""
     from hyperpocket_tpu_torch.eval.evaluation import mmd_process, tmd_process, uhd_process
 
-    os.makedirs(join(results_dir, "compute_mmd_tmd_uhd"), exist_ok=True)
+    _out_dir(join(results_dir, "compute_mmd_tmd_uhd"))
     shape_dir = join(results_dir, "fixed")
     if not glob.glob(join(shape_dir, "*reconstruction.npy")):
         raise FileNotFoundError(
@@ -371,8 +420,7 @@ def compute_mmd_tmd_uhd(ctx: ExperimentContext, datasets_dict, results_dir: str,
         tmd_v = tmd_process(shape_dir, device=ctx.device)
     log.info("TMD * 100 = %s", tmd_v * 100)
     res["TMD * 100"] = tmd_v * 100
-    with open(join(results_dir, "compute_mmd_tmd_uhd", f"{epoch}res.json"), "w") as fh:
-        json.dump(res, fh)
+    _save_json(join(results_dir, "compute_mmd_tmd_uhd", f"{epoch}res.json"), res)
     return res
 
 
@@ -385,8 +433,7 @@ def merge_different_categories(ctx: ExperimentContext, datasets_dict, results_di
     length and the second~second completion uses the second category's
     missing half (two reference bugs fixed, PARITY.md).
     """
-    out_dir = join(results_dir, "merge_different_categories")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _out_dir(join(results_dir, "merge_different_categories"))
     first_ds, second_ds = datasets_dict[first_cat], datasets_dict[second_cat]
     if len(first_ds) < amount or len(second_ds) < amount:
         raise ValueError(
@@ -408,7 +455,7 @@ def merge_different_categories(ctx: ExperimentContext, datasets_dict, results_di
         for tag, arrs in ((first_cat, (f_existing, f_missing, f_gt)),
                           (second_cat, (s_existing, s_missing, s_gt))):
             for name, arr in zip(("existing", "missing", "gt"), arrs):
-                np.save(join(out_dir, f"{tag}_{i}_{name}"), arr)
+                _save(join(out_dir, f"{tag}_{i}_{name}"), arr)
 
         for j in range(amount):
             t_f_missing = halves(np.asarray(first_ds[first_ids[j]][2], dtype=np.float32))[1]
@@ -423,28 +470,27 @@ def merge_different_categories(ctx: ExperimentContext, datasets_dict, results_di
             )
             for name, ex, mi, gt in pairs:
                 rec = ctx.complete_from_missing(ex[None], mi[None], num_points=gt.shape[0])
-                np.save(join(out_dir, name), rec[0])
+                _save(join(out_dir, name), rec[0])
 
 
 def same_model_different_slices(ctx: ExperimentContext, datasets_dict, results_dir: str, epoch,
                                 amount=10, slices_number=10, mean=0.0, std=0.015,
                                 slice_points=1024):
     """Reference core/experiments.py:194-225: complete both halves of random re-slices."""
-    out_dir = join(results_dir, "same_model_different_slices")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _out_dir(join(results_dir, "same_model_different_slices"))
 
     def process_half(pcd, cat_name, tag, i, j):
-        np.save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_pcd"), pcd)
+        _save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_pcd"), pcd)
         noise = ctx.sample_noise(1, mean, std)
-        np.save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_noise"), noise)
+        _save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_noise"), noise)
         rec = ctx.complete(pcd[None].astype(np.float32), noise)[0]
-        np.save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_rec"), rec.T)
+        _save(join(out_dir, f"{cat_name}_{i}_{j}_{tag}_rec"), rec.T)
 
     for cat_name, ds in datasets_dict.items():
         ids = ctx.np_rng.choice(len(ds), min(amount, len(ds)), replace=False)
         for i, idx in enumerate(ids):
             gt = np.asarray(ds[idx][2], dtype=np.float32)
-            np.save(join(out_dir, f"{cat_name}_{i}_gt"), gt)
+            _save(join(out_dir, f"{cat_name}_{i}_gt"), gt)
             for j in range(slices_number):
                 first, second = slice_point_cloud(gt, slice_points, rng=ctx.np_rng)
                 process_half(first, cat_name, "f", i, j)
@@ -456,15 +502,15 @@ def completion3d_submission(ctx: ExperimentContext, datasets_dict, results_dir: 
     """Reference core/experiments.py:228-247: per-model h5 files + submission.zip."""
     import h5py
 
-    bench_dir = join(results_dir, "completion3d_submission")
-    shutil.rmtree(bench_dir, ignore_errors=True)
-    os.makedirs(bench_dir, exist_ok=True)
+    bench_dir = _out_dir(join(results_dir, "completion3d_submission"), fresh=True)
     loader = BatchLoader(datasets_dict["all"], batch_size, shuffle=False, num_workers=4)
-    with ZipFile(join(results_dir, "submission.zip"), "w") as zf:
+    writes = distributed.is_main_process()
+    with (ZipFile(join(results_dir, "submission.zip"), "w") if writes
+          else contextlib.nullcontext()) as zf:
         for existing, _, _, model_ids in loader.epoch(0):
             noise = ctx.sample_noise(existing.shape[0], 0.0, 0.0)
             rec = ctx.complete(existing, noise)  # (B, 2048, 3)
-            for idx in range(rec.shape[0]):
+            for idx in range(rec.shape[0] if writes else 0):
                 ofile = join(bench_dir, str(model_ids[idx]).split("/")[-1] + ".h5")
                 with h5py.File(ofile, "w") as fh:
                     fh.create_dataset("data", data=rec[idx])
@@ -473,10 +519,48 @@ def completion3d_submission(ctx: ExperimentContext, datasets_dict, results_dir: 
 
 def make_tsne_reduction(ctx: ExperimentContext, datasets_dict, results_dir: str, epoch,
                         cat_name: str | None = None, amount: int = 100):
-    """t-SNE of latents and target-network weights; not ported (unregistered, as in JAX)."""
-    raise NotImplementedError(
-        "make_tsne_reduction needs scikit-learn's t-SNE and the encoder's latent/weight "
-        "taps, not ported yet (ROADMAP.md, open items: 't-SNE')")
+    """t-SNE of latents and target-network weights over a category.
+
+    The JAX package's version of the reference's unregistered experiment
+    (core/experiments.py:250-389): for each of ``amount`` random gt clouds,
+    encode its x-split and its y-split halves (``FullModel.encode``), embed
+    the latents and the flat target-network weights with scikit-learn's
+    t-SNE, and save both embeddings and the per-object distance between the
+    two slicings' embeddings. Not in the registry, as in the JAX package.
+    """
+    from sklearn import manifold
+
+    out_dir = _out_dir(join(results_dir, "temp_exp"))
+    cats = [cat_name] if cat_name else list(datasets_dict)
+    for cat in cats:
+        ds = datasets_dict[cat]
+        ids = ctx.np_rng.choice(len(ds), min(amount, len(ds)), replace=False)
+        latents, tnws = [], []
+        for idx in ids:
+            gt = np.asarray(ds[idx][2], dtype=np.float32)
+            half = gt.shape[0] // 2
+            for axis in (0, 1):  # x-split then y-split (experiments.py:315-321)
+                order = np.argsort(gt.T[axis])
+                existing, missing = gt[order[half:]], gt[order[:half]]
+                generator = torch.Generator(device=ctx.device).manual_seed(int(ctx.next_key()))
+                latent, tnw = ctx.model.encode(ctx._tensor(existing)[None],
+                                               ctx._tensor(missing)[None], generator,
+                                               training=False)
+                latents.append(latent[0].float().cpu().numpy())
+                tnws.append(tnw[0].float().cpu().numpy())
+        latents, tnws = np.stack(latents), np.stack(tnws)
+        perplexity = max(1.0, min(30.0, (len(latents) - 1) / 3))
+        latent_tsne = manifold.TSNE(n_components=2, init="pca",
+                                    perplexity=perplexity).fit_transform(latents)
+        tnw_tsne = manifold.TSNE(n_components=2, init="pca",
+                                 perplexity=perplexity).fit_transform(tnws)
+        _save(join(out_dir, f"{cat}_latent_tsne"), latent_tsne)
+        _save(join(out_dir, f"{cat}_tnw_tsne"), tnw_tsne)
+        # distance between the two slicings of the same object in embedding space
+        _save(join(out_dir, f"{cat}_latent_dist"),
+              np.linalg.norm(latent_tsne[0::2] - latent_tsne[1::2], axis=1))
+        _save(join(out_dir, f"{cat}_tnw_dist"),
+              np.linalg.norm(tnw_tsne[0::2] - tnw_tsne[1::2], axis=1))
 
 
 def temp_exp(ctx: ExperimentContext, datasets_dict, results_dir: str, epoch):
@@ -512,6 +596,8 @@ def run_experiments(config: dict, result_dir: str, datasets=None, device="cuda",
     from hyperpocket_tpu_torch.utils.logging_setup import seed_setup
 
     device = resolve_device(device)
+    if distributed.is_initialized():
+        device = distributed.rank_device(device)
     seed_setup(config["setup"]["seed"])
     model, epoch = restore_trained_model(config, device=device)
     model.eval()
@@ -536,8 +622,10 @@ def run_experiments(config: dict, result_dir: str, datasets=None, device="cuda",
         ex_cfg = dict(ex_cfg)
         if ex_cfg.pop("execute", False):
             log.info("experiment: %s", name)
-            os.makedirs(join(result_dir, name), exist_ok=True)
+            _out_dir(join(result_dir, name))
             with ctx.timed(f"{name}_s"):
                 experiment_functions_dict[name](ctx, test_dataset_dict, result_dir, epoch,
                                                 **ex_cfg)
+            if distributed.world_size() > 1:  # rank 0's files are written before any reads
+                torch.distributed.barrier()
     return ctx

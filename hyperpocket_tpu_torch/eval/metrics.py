@@ -10,7 +10,9 @@ after PointFlow):
   of pairs, dispatched ``pair_block`` pairs at a time (the last block padded
   with pair 0 and cut), the clouds uploaded once and gathered on the device.
   On a card each dispatch runs K3 once (``ops/nn.py::chamfer_per_cloud_auto``)
-  and K6 once (``ops/emd.py::earth_mover_distance``).
+  and K6 once (``ops/emd.py::earth_mover_distance``). With ``mesh`` each
+  rank of the data axis takes a contiguous share of every dispatch and the
+  ranks all-gather the per-pair values once at the end.
 * ``mmd_cov``/``mmd_cov_multi``: MMD (fidelity) = mean over refs of the best
   sample distance; coverage = share of refs that are some sample's argmin.
 * ``knn``: 1-NN two-sample accuracy, with ``topk`` over the k smallest.
@@ -122,13 +124,21 @@ def pairwise_emd_cd_multi(row_pcs, col_sets, pair_block: int = 512, device=None,
 
     ``row_pcs`` is one shared (R, Q, 3) set or per-object (G, R, Q, 3) sets.
     All G*R*S pairs are enumerated flat and dispatched ``pair_block`` at a
-    time; the last dispatch is padded with pair 0 and its tail cut. ``mesh``
-    (sharding the pairs over devices) is not ported.
+    time; the last dispatch is padded with pair 0 and its tail cut.
+
+    ``mesh`` (``parallel.make_mesh``): the pairs are independent, so each
+    rank of the data axis computes a contiguous share of every dispatch
+    (``pair_block`` rounded up to divide over the axis) and the ranks
+    all-gather the per-pair CD and EMD once; every rank returns the whole
+    matrices, the per-pair values of the unsharded call.
     """
+    n_shards, shard = 1, 0
     if mesh is not None:
-        raise NotImplementedError(
-            "pairwise_emd_cd_multi over a device mesh comes with the parallelism slice "
-            "(ROADMAP.md, open items: 'parallel_data')")
+        from hyperpocket_tpu_torch.parallel.mesh import DATA_AXIS
+
+        n_shards, shard = mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+        pair_block = -(-pair_block // n_shards) * n_shards
+    per_shard = pair_block // n_shards
     cols = _tensor(col_sets, device)
     device = cols.device
     G, S = cols.shape[:2]
@@ -147,6 +157,7 @@ def pairwise_emd_cd_multi(row_pcs, col_sets, pair_block: int = 512, device=None,
         idx = np.arange(p0, min(p0 + pair_block, n), dtype=np.int64)
         if idx.size < pair_block:
             idx = np.concatenate([idx, np.zeros(pair_block - idx.size, np.int64)])
+        idx = idx[shard * per_shard:(shard + 1) * per_shard]
         g, rem = np.divmod(idx, R * S)
         i, j = np.divmod(rem, S)
         r_idx = g * R + i if per_object_rows else i
@@ -154,9 +165,19 @@ def pairwise_emd_cd_multi(row_pcs, col_sets, pair_block: int = 512, device=None,
                          torch.as_tensor(g * S + j, device=device), timings)
         cd_chunks.append(c)
         emd_chunks.append(e)
-    cd = torch.cat(cd_chunks)[:n].cpu().numpy()
-    emd = torch.cat(emd_chunks)[:n].cpu().numpy()
-    return cd.reshape(G, R, S), emd.reshape(G, R, S)
+    cd, emd = torch.cat(cd_chunks), torch.cat(emd_chunks)
+    if mesh is not None:
+        cd, emd = (_gather_shares(mesh, v, per_shard) for v in (cd, emd))
+    return cd[:n].cpu().numpy().reshape(G, R, S), emd[:n].cpu().numpy().reshape(G, R, S)
+
+
+def _gather_shares(mesh, local: torch.Tensor, per_shard: int) -> torch.Tensor:
+    """Every dispatch's values in pair order from each rank's shares."""
+    from hyperpocket_tpu_torch.parallel.mesh import DATA_AXIS, all_gather_cat
+
+    n_shards = mesh.size(DATA_AXIS)
+    every = all_gather_cat(local[None], mesh.group(DATA_AXIS))  # (shards, dispatches * share)
+    return every.view(n_shards, -1, per_shard).transpose(0, 1).reshape(-1)
 
 
 def mmd_cov(all_dist) -> dict:

@@ -21,6 +21,7 @@ kernel is the faster of the two (PERF.md). fp64 and fp16 keep the chain.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any
 
@@ -157,6 +158,37 @@ class FullModel(nn.Module):
             _, noise, _ = self.random_encoder(existing, is_vae=True, generator=generator,
                                               fast=True, eps=eps)
         return noise, None, None
+
+    def random_inputs(self, generator: torch.Generator | None, batch: int, num_points: int,
+                      epoch, vae_eps: torch.Tensor | None = None,
+                      ball_points: torch.Tensor | None = None):
+        """``(vae_eps, ball_points)`` of a forward of ``batch`` clouds with no
+        ``noise``: those given, the others drawn from ``generator`` as
+        ``apply`` draws them, in its order (the VAE noise when there is a VAE
+        encoder, then the ball points). A data-parallel rank draws the
+        global batch's and keeps its rows."""
+        if vae_eps is None and self.random_encoder_output_size > 0:
+            vae_eps = torch.randn((batch, self.random_encoder_output_size), generator=generator,
+                                  dtype=torch.float32, device=generator.device)
+        if ball_points is None:
+            ball_points = generate_target_network_input_batch(
+                self.target_network_input, generator, epoch, batch, num_points,
+                method=self.ball_method)
+        return vae_eps, ball_points
+
+    def encode(self, existing: torch.Tensor, missing: torch.Tensor | None,
+               generator: torch.Generator | None, *, training: bool = True,
+               noise: torch.Tensor | None = None):
+        """``(latent (B, Z), flat target-network weights (B, W))``: the taps
+        the reference's t-SNE experiment takes (core/experiments.py:250-255),
+        as the JAX package's ``FullModel.encode``."""
+        cd = self.compute_torch_dtype
+        existing = existing.to(cd)
+        missing = None if missing is None else missing.to(cd)
+        noise = None if noise is None else noise.to(cd)
+        with contextlib.nullcontext() if training else torch.no_grad():
+            latent, _, _ = self._get_latent(existing, missing, generator, training, noise, None)
+            return latent, self.hyper_network(latent)
 
     def apply(self, existing: torch.Tensor, missing: torch.Tensor | None,
               generator: torch.Generator | None, epoch, *, num_output_points: int = 2048,

@@ -9,6 +9,12 @@ head's fan-out), or with torch's default ``nn.Linear`` reset when
 ``freeze_layers_learning`` is set. Frozen heads are also used detached, the
 counterpart of the JAX package's ``lax.stop_gradient``, and
 ``train/optim.py`` leaves them out of the optimizer.
+
+Under tensor parallelism (``parallel/mesh.py::shard_params`` sets
+``tp_group``) this rank holds a column shard of ``trunk[-1]`` and a row
+shard of the head's weight: ``trunk[-1]``'s input passes
+``copy_to_group``, and the head's partial products are summed over the
+group by ``reduce_from_group`` before the bias is added.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from hyperpocket_tpu_torch.models.initializers import (
     torch_default_linear_,
     xavier_relu_,
 )
+from hyperpocket_tpu_torch.parallel.mesh import copy_to_group, reduce_from_group
 
 TRUNK_SIZES = (64, 128, 512, 1024, 2048)
 
@@ -44,6 +51,7 @@ class HyperNetwork(nn.Module):
                  freeze_heads: bool = False, generator: torch.Generator | None = None):
         super().__init__()
         self.freeze_heads = freeze_heads
+        self.tp_group = None  # the model axis' process group under tensor parallelism
         dims = (input_size,) + TRUNK_SIZES
         self.trunk = nn.ModuleList(
             nn.Linear(dims[i], dims[i + 1], bias=use_bias) for i in range(len(TRUNK_SIZES)))
@@ -75,8 +83,13 @@ class HyperNetwork(nn.Module):
         ``(flat, h)``, so the kernel forms dW from ``h`` and that cotangent.
         The head bias keeps its gradient. Production forwards set none.
         """
+        tp = self.tp_group is not None
+        if tp and (head_delta is not None or return_trunk):
+            raise ValueError("the fused head-Adam taps take an unsharded head")
         h = latent
         for i, layer in enumerate(self.trunk):
+            if tp and i == len(self.trunk) - 1:
+                h = copy_to_group(h, self.tp_group)
             h = dense(layer, h)
             if i < len(self.trunk) - 1:
                 h = torch.relu(h)
@@ -85,7 +98,10 @@ class HyperNetwork(nn.Module):
             w, b = w.detach(), b.detach()
         elif stop_head_weight_grad:
             w = w.detach()
-        flat = linear(h, w.to(h.dtype), b.to(h.dtype))
+        if tp:
+            flat = reduce_from_group(linear(h, w.to(h.dtype), None), self.tp_group) + b.to(h.dtype)
+        else:
+            flat = linear(h, w.to(h.dtype), b.to(h.dtype))
         if head_delta is not None:
             flat = flat + head_delta.to(flat.dtype)
         return (flat, h) if return_trunk else flat

@@ -25,12 +25,20 @@ config or checkpoints. The exporting device is the serving device: the
 route through K4 and every tensor's device are fixed at export, and an
 artifact exported on ``cuda`` refuses to load where CUDA is absent.
 
+Data-parallel serving runs one process per card (``parallel/``): every
+rank takes the global batch, draws the global ball points from the seed,
+serves its rows and all-gathers the output, so the result is the
+one-process output for the same seed. ``make_serving_fn(mesh=)`` does it
+from the weights; ``export_completion(data_parallel=N)`` exports the
+per-rank program at ``batch / N`` and records ``data_parallel``, and
+``load_completion`` of such an artifact must run in a world of N ranks.
+
 CLI::
 
     # export (bare flags are export too)
     python -m hyperpocket_tpu_torch.serving export --config settings/config_3depn_chair.json \\
         --out model.pt2 [--batch 64] [--n-existing 1024] [--points 2048] [--epoch best_val] \\
-        [--device cuda]
+        [--device cuda] [--data-parallel N]
 
     # PLY in, completion PLY out, from an artifact or from a config's checkpoint
     python -m hyperpocket_tpu_torch.serving infer (--artifact model.pt2 | --config cfg.json) \\
@@ -72,6 +80,8 @@ from hyperpocket_tpu_torch.data.plyio import load_ply, save_ply
 from hyperpocket_tpu_torch.data.real_data import get_scales
 from hyperpocket_tpu_torch.models.full_model import FullModel
 from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+from hyperpocket_tpu_torch.parallel import distributed
+from hyperpocket_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_gather_cat, batch_rows
 from hyperpocket_tpu_torch.train.checkpoint import restore_trained_model
 
 ARTIFACT_SUFFIX = ".pt2"
@@ -96,9 +106,16 @@ def _serving_net(model: FullModel, params_or_module, device: torch.device) -> Fu
     return net.serving_params().to(device)
 
 
+def _data_parallel(mesh: Mesh, serve, existing, noise, balls) -> torch.Tensor:
+    """This rank's rows of the global batch through ``serve``, gathered."""
+    rows = batch_rows(mesh, existing.shape[0])
+    return all_gather_cat(serve(existing[rows], noise[rows], balls[rows]),
+                          mesh.group(DATA_AXIS))
+
+
 def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | None = None, *,
                     num_output_points: int = 2048, epoch: float = 1e9,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda", mesh: Mesh | None = None):
     """``f(existing, noise, seed) -> completion`` with the parameters closed over.
 
     ``params_or_module``: a ``FullModel`` holding the weights, a state_dict
@@ -106,8 +123,15 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
     They are cast once to the compute dtype (``serving_params``) and moved
     to ``device``. ``epoch`` feeds the progressive ball normalisation; past
     the schedule (the default) every ball point lies on the unit sphere.
+
+    With ``mesh`` (``parallel.make_mesh``) every rank calls ``f`` with the
+    global batch: it serves its rows of the data axis, with its rows of the
+    ball points drawn for the global batch, and returns the gathered
+    global output.
     """
     device = resolve_device(device)
+    if mesh is not None:
+        device = distributed.rank_device(device)
     net = _serving_net(model, params_or_module, device)
     epoch = float(epoch)
 
@@ -115,8 +139,15 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
         generator = torch.Generator(device=device).manual_seed(int(seed))
         existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
-        return net.apply(existing, None, generator, epoch,
-                         num_output_points=num_output_points, training=False, noise=noise)
+        if mesh is None:
+            return net.apply(existing, None, generator, epoch,
+                             num_output_points=num_output_points, training=False, noise=noise)
+        balls = generate_target_network_input_batch(
+            net.target_network_input, generator, epoch, existing.shape[0], num_output_points,
+            method=net.ball_method)
+        return _data_parallel(mesh, lambda e, n, b: net.apply(
+            e, None, None, epoch, num_output_points=num_output_points, training=False,
+            noise=n, ball_points=b), existing, noise, balls)
 
     return completion
 
@@ -145,18 +176,21 @@ def export_completion(model: FullModel, params_or_module: FullModel | Mapping | 
     """The completion forward for (batch, n_existing) inputs as ``.pt2`` bytes.
 
     ``params_or_module`` as in ``make_serving_fn``. The program is traced on
-    ``device``, which becomes the artifact's serving device. ``data_parallel``
-    above 1 is not ported; 1 exports unsharded, as in the JAX package.
+    ``device``, which becomes the artifact's serving device.
+    ``data_parallel=N`` exports the per-rank program, at ``batch / N`` rows
+    (``batch % N`` raises), and records N: ``load_completion`` then serves
+    the global batch over N ranks.
     """
-    if data_parallel is not None and data_parallel > 1:
-        raise NotImplementedError(
-            "the data-parallel export is not ported (ROADMAP.md §1, item 7: "
-            "'parallel/*', data-parallel serving and export)")
+    local = batch
+    if data_parallel is not None:
+        if data_parallel < 1 or batch % data_parallel:
+            raise ValueError(f"batch {batch} not divisible by data_parallel {data_parallel}")
+        local = batch // data_parallel
     device = resolve_device(device)
     net = _serving_net(model, params_or_module, device)
-    example = (torch.zeros((batch, n_existing, 3), device=device),
-               torch.zeros((batch, net.get_noise_size()), device=device),
-               torch.zeros((batch, num_output_points, 3), device=device))
+    example = (torch.zeros((local, n_existing, 3), device=device),
+               torch.zeros((local, net.get_noise_size()), device=device),
+               torch.zeros((local, num_output_points, 3), device=device))
     with torch.no_grad():
         program = torch.export.export(_CompletionProgram(net, num_output_points), example,
                                       strict=False)
@@ -170,6 +204,7 @@ def export_completion(model: FullModel, params_or_module: FullModel | Mapping | 
         "target_network_input": net.target_network_input,
         "ball_method": net.ball_method,
         "compute_dtype": net.compute_dtype,
+        "data_parallel": data_parallel,
     }
     buf = io.BytesIO()
     torch.export.save(program, buf, extra_files={META_FILE: json.dumps(meta)})
@@ -192,10 +227,28 @@ def load_completion(data: bytes):
     Raises when the artifact's device is absent (an artifact exported on
     ``cuda`` never serves on the CPU). The ball points are drawn from the
     seed exactly as ``make_serving_fn`` draws them.
+
+    An artifact exported with ``data_parallel=N`` needs a world of N ranks
+    (one process and no group for N = 1). Under a process group every rank
+    calls the callable with the global batch and gets the global output:
+    it serves its rows and the ranks all-gather.
     """
     meta = artifact_meta(data)
+    dp = meta.get("data_parallel")
+    world = distributed.world_size()
+    if dp is not None and dp != world:
+        raise ValueError(f"the artifact was exported with data_parallel={dp}; it serves in a "
+                         f"world of {dp} ranks, this one has {world}")
     device = resolve_device(meta["device"])
+    mesh = None
+    if dp is not None and distributed.is_initialized():
+        from hyperpocket_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp, 1)
+        device = distributed.rank_device(device)
     program = torch.export.load(io.BytesIO(data)).module()
+    if mesh is not None:
+        program.to(device)  # the weights as exported sit on the exporting card
 
     def completion(existing, noise, seed: int) -> torch.Tensor:
         generator = torch.Generator(device=device).manual_seed(int(seed))
@@ -205,7 +258,9 @@ def load_completion(data: bytes):
         existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
         with torch.no_grad():
-            return program(existing, noise, balls)
+            if mesh is None:
+                return program(existing, noise, balls)
+            return _data_parallel(mesh, program, existing, noise, balls)
 
     completion.meta = meta
     return completion
@@ -271,6 +326,9 @@ def infer_main(argv=None) -> int:
         with open(args.artifact, "rb") as fh:
             data = fh.read()
         meta = artifact_meta(data)
+        if (meta.get("data_parallel") or 0) > 1:
+            raise SystemExit("infer drives single-process artifacts; re-export without "
+                             "--data-parallel for CLI serving")
         batch, n_exist, zdim = meta["batch"], meta["n_existing"], meta["noise_size"]
         lg = _load_prior(args.latent_prior, zdim)  # checked before any completion
         f = load_completion(data)
@@ -381,7 +439,8 @@ def export_main(argv=None) -> int:
                     help="restore policy: latest | best_val | <int> "
                          "(default: the config's experiments.epoch, else latest)")
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="not ported above 1 (ROADMAP.md §1, item 7)")
+                    help="export the per-rank program of an N-rank data-parallel server "
+                         "(N must divide --batch)")
     ap.add_argument("--device", default="cuda",
                     help="the device the artifact is traced on and serves on")
     args = ap.parse_args(argv)

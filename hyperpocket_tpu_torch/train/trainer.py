@@ -17,8 +17,23 @@ Port of ``hyperpocket_tpu/train/trainer.py``:
   ``torch.Generator`` from the counter ``seed * 1_000_003 + n``, and the
   counter is saved with each checkpoint.
 
-Not ported: the device mesh (``training.parallel`` asking for more than one
-device raises), the compile cache (``setup.compile_cache``) and
+Parallel training (``training.parallel``, ``parallel/mesh.py``): one
+process per device over a ``(data, model)`` mesh, as the JAX package's
+defaults choose it: ``data: null`` is the whole world over ``model``, and
+the mesh is used when ``data x model > 1`` and the batch divides over the
+data axis (``use_mesh=True`` forces it, at any world size). Each rank loads
+its rows of every batch (``BatchLoader(process_shard=)``), draws the
+*global* batch's VAE noise and ball points from the shared step counter and
+keeps its rows, so a data-parallel step is the one-process step on the
+same batch. The loss is a sum over the batch and the KLD divides by the
+global batch, so each rank's gradients are partial sums: they are summed
+(not averaged) over the data axis, and the losses returned are the global
+ones. With ``model > 1`` the hypernetwork's ``trunk[-1]`` and head are
+tensor-parallel. Rank 0 alone writes logs, samples and checkpoints; the
+checkpoint holds the full tensors (``mesh.unsharded``), so it is the
+one-process file, and a restore re-shards it.
+
+Not ported: the compile cache (``setup.compile_cache``) and
 ``training.prng_impl``, which are not read, and the ``scan`` epoch mode,
 whose trajectory the JAX package holds equal to the step loop's: with
 ``epoch_mode: "scan"`` the step loop runs, and ``scan_invocations`` stays 0.
@@ -39,6 +54,18 @@ import torch
 
 from hyperpocket_tpu_torch.models.full_model import _DTYPES, FullModel
 from hyperpocket_tpu_torch.ops.head_adam import adam_scalars, head_adam_update
+from hyperpocket_tpu_torch.parallel import distributed
+from hyperpocket_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_reduce_,
+    all_reduce_grads,
+    batch_rows,
+    make_mesh,
+    replicate,
+    shard_params,
+    unsharded,
+)
 from hyperpocket_tpu_torch.train import checkpoint as ckpt
 from hyperpocket_tpu_torch.train.config import get_results_dir_path
 from hyperpocket_tpu_torch.train.losses import kld_loss, reconstruction_loss
@@ -68,34 +95,63 @@ def set_matmul_precision(precision: str = "highest") -> None:
     torch.set_float32_matmul_precision("high" if tf32 else "highest")
 
 
-def _losses(model: FullModel, rec, mu, sigma, gt, loss_coef: float):
+def _losses(model: FullModel, rec, mu, sigma, gt, loss_coef: float, batch: int):
+    """(loss, loss_r, loss_k); the KLD divides by ``batch``, the global batch."""
     loss_r = reconstruction_loss(gt, rec, loss_coef)
     if model.has_generativity:
-        loss_k = kld_loss(mu, sigma, gt.shape[0])
+        loss_k = kld_loss(mu, sigma, batch)
     else:
         loss_k = torch.zeros((), dtype=loss_r.dtype, device=loss_r.device)
     return loss_r + loss_k, loss_r, loss_k
 
 
+def _local_draws(mesh: Mesh, model: FullModel, generator, batch: int, num_points: int, epoch,
+                 vae_eps, ball_points, device):
+    """This rank's rows of the global batch's draws."""
+    vae_eps, ball_points = model.random_inputs(generator, batch, num_points, epoch, vae_eps,
+                                               ball_points)
+    rows = batch_rows(mesh, batch)
+    return (None if vae_eps is None else torch.as_tensor(vae_eps)[rows].to(device),
+            torch.as_tensor(ball_points)[rows].to(device))
+
+
 def make_train_step(model: FullModel, optimizer: torch.optim.Optimizer,
-                    loss_coef: float) -> Callable:
+                    loss_coef: float, mesh: Mesh | None = None) -> Callable:
     """Returns ``step(existing, missing, gt, generator, epoch, num_points,
     vae_eps=None, ball_points=None) -> (loss, loss_r, loss_k, rec)``.
 
     The step updates ``model``'s parameters in place through ``optimizer``.
     The returned tensors are detached.
+
+    With ``mesh`` the clouds are this rank's rows of the global batch and
+    ``vae_eps``/``ball_points``, when given, the global batch's; the missing
+    draws are made for the global batch and cut to this rank's rows. The
+    gradients are summed over the data axis before the update, and the
+    losses returned are the global sums; ``rec`` is this rank's rows.
     """
+    params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(existing, missing, gt, generator, epoch, num_points, vae_eps=None,
              ball_points=None):
         optimizer.zero_grad(set_to_none=True)
+        batch = existing.shape[0]
+        if mesh is not None:
+            batch *= mesh.size(DATA_AXIS)
+            vae_eps, ball_points = _local_draws(mesh, model, generator, batch, num_points,
+                                                epoch, vae_eps, ball_points, existing.device)
         rec, mu, sigma = model.apply(existing, missing, generator, epoch,
                                      num_output_points=num_points, training=True,
                                      vae_eps=vae_eps, ball_points=ball_points)
-        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef)
+        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef, batch)
         loss.backward()
+        if mesh is None:
+            optimizer.step()
+            return loss.detach(), loss_r.detach(), loss_k.detach(), rec.detach()
+        all_reduce_grads(params, mesh.group(DATA_AXIS))
         optimizer.step()
-        return loss.detach(), loss_r.detach(), loss_k.detach(), rec.detach()
+        losses = all_reduce_(torch.stack([loss, loss_r, loss_k]).detach(),
+                             mesh.group(DATA_AXIS))
+        return (*losses.unbind(), rec.detach())
 
     return step
 
@@ -140,7 +196,7 @@ def make_fused_train_step(model: FullModel, optimizer: torch.optim.Optimizer, lo
                                         num_output_points=num_points, training=True,
                                         vae_eps=vae_eps, ball_points=ball_points,
                                         head_delta=delta, return_trunk=True)
-        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef)
+        loss, loss_r, loss_k = _losses(model, rec, mu, sigma, gt, loss_coef, gt.shape[0])
         loss.backward()
         optimizer.step()
         head_state["count"] += 1
@@ -153,16 +209,33 @@ def make_fused_train_step(model: FullModel, optimizer: torch.optim.Optimizer, lo
     return step
 
 
-def make_val_step(model: FullModel, loss_coef: float) -> Callable:
+def make_val_step(model: FullModel, loss_coef: float, mesh: Mesh | None = None) -> Callable:
     """Returns ``step(existing, missing, gt, generator, epoch, num_points) ->
     (loss, rec)``: the inference forward and the reconstruction loss, with no
-    gradient."""
+    gradient.
+
+    With ``mesh`` the clouds are the global batch. When it divides over the
+    data axis, each rank runs its rows, with its rows of the global draws,
+    and the loss is summed over the data axis; ``rec`` is then this rank's
+    rows. Otherwise every rank runs the whole batch, as JAX leaves an
+    indivisible batch unsharded.
+    """
 
     @torch.no_grad()
     def step(existing, missing, gt, generator, epoch, num_points):
-        rec = model.apply(existing, missing, generator, epoch, num_output_points=num_points,
-                          training=False)
-        return reconstruction_loss(gt, rec, loss_coef), rec
+        batch = existing.shape[0]
+        if mesh is None or batch % mesh.size(DATA_AXIS):
+            rec = model.apply(existing, missing, generator, epoch,
+                              num_output_points=num_points, training=False)
+            return reconstruction_loss(gt, rec, loss_coef), rec
+        vae_eps, balls = _local_draws(mesh, model, generator, batch, num_points, epoch, None,
+                                      None, existing.device)
+        rows = batch_rows(mesh, batch)
+        rec = model.apply(existing[rows], None if missing is None else missing[rows],
+                          generator, epoch, num_output_points=num_points, training=False,
+                          vae_eps=vae_eps, ball_points=balls)
+        loss = reconstruction_loss(gt[rows], rec, loss_coef)
+        return all_reduce_(loss, mesh.group(DATA_AXIS)), rec
 
     return step
 
@@ -183,9 +256,15 @@ class Trainer:
     arrays replace a train step's draws; after each ``train_epoch``
     ``last_step_losses`` holds that epoch's per-step (loss, loss_r,
     loss_kld) rows.
+
+    ``use_mesh`` as in the JAX package: None decides from
+    ``training.parallel`` and the world size (see the module docstring),
+    True forces the mesh. Under a process group a ``cuda`` device means
+    this rank's card.
     """
 
-    def __init__(self, config: dict, *, device: str | torch.device = "cuda"):
+    def __init__(self, config: dict, *, device: str | torch.device = "cuda",
+                 use_mesh: bool | None = None):
         from hyperpocket_tpu_torch.data.base import get_datasets
         from hyperpocket_tpu_torch.data.loader import BatchLoader
         from hyperpocket_tpu_torch.utils.logging_setup import logging_setup, seed_setup
@@ -193,13 +272,16 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        if distributed.is_initialized():
+            self.device = distributed.rank_device(self.device)
         self.config = config
         tr = config["training"]
-        par = tr.get("parallel", {})
-        if int(par.get("model", 1)) > 1 or int(par.get("data") or 1) > 1:
-            raise NotImplementedError(
-                f"training.parallel={par} asks for more than one device; the port trains on "
-                "one (ROADMAP.md, slice 'Parallelism')")
+        dl_cfg = tr.get("dataloader", {})
+        tcfg = dict(dl_cfg.get("train", {"batch_size": 8}))
+        vcfg = dict(dl_cfg.get("val", {"batch_size": 8}))
+        self.mesh = self._make_mesh(tr.get("parallel", {}), int(tcfg.get("batch_size", 8)),
+                                    use_mesh)
+        self.is_writer = distributed.is_main_process()
         seed = int(config["setup"]["seed"])
         seed_setup(seed)
         set_matmul_precision(tr.get("matmul_precision", "highest"))
@@ -209,16 +291,23 @@ class Trainer:
         self.weights_path = join(self.result_dir, "weights")
         self.metrics_path = join(self.result_dir, "metrics")
         self.samples_path = join(self.result_dir, "samples")
-        for d in (self.result_dir, self.weights_path, self.metrics_path, self.samples_path):
-            makedirs(d, exist_ok=True)
-        with open(join(self.result_dir, "last_config.json"), "w") as fh:
-            json.dump(config, fh)
-        logging_setup(self.result_dir)
+        if self.is_writer:
+            for d in (self.result_dir, self.weights_path, self.metrics_path,
+                      self.samples_path):
+                makedirs(d, exist_ok=True)
+            with open(join(self.result_dir, "last_config.json"), "w") as fh:
+                json.dump(config, fh)
+            logging_setup(self.result_dir)
         self.log = logging.getLogger("hyperpocket_tpu_torch")
 
         # training.param_dtype = "float64" is the trajectory-parity mode (CPU)
         self.model = model_from_config(config, torch.Generator().manual_seed(seed)).to(
             device=self.device, dtype=_DTYPES[tr.get("param_dtype", "float32")])
+        if self.mesh is not None:
+            replicate(self.mesh, self.model)
+            shard_params(self.mesh, self.model)
+            self.log.info("mesh: data=%d model=%d", self.mesh.size("data"),
+                          self.mesh.size("model"))
         self.loss_coef = float(tr.get("loss_coef", 0.05))
         self.max_epoch = int(tr["max_epoch"])
         self.save_freq = int(tr.get("state_save_frequency", 1))
@@ -230,13 +319,12 @@ class Trainer:
 
         self.train_dataset, self.val_dataset_dict, self.test_dataset_dict = get_datasets(
             config["dataset"])
-        dl_cfg = tr.get("dataloader", {})
-        tcfg = dict(dl_cfg.get("train", {"batch_size": 8}))
-        vcfg = dict(dl_cfg.get("val", {"batch_size": 8}))
+        shard = ((0, 1) if self.mesh is None
+                 else (self.mesh.index(DATA_AXIS), self.mesh.size(DATA_AXIS)))
         self.train_loader = BatchLoader(
             self.train_dataset, tcfg.get("batch_size", 8), shuffle=tcfg.get("shuffle", True),
             drop_last=tcfg.get("drop_last", True), num_workers=tcfg.get("num_workers", 8),
-            seed=seed)
+            seed=seed, process_shard=shard)
         for cat, ds in self.val_dataset_dict.items():
             if len(ds) == 0:
                 self.log.info("val category %s: no items in split, skipped", cat)
@@ -256,8 +344,8 @@ class Trainer:
         # parameters and optimizer state are the fp32 masters either way
         sw = tr.get("compute_dtype_switch")
         self._dtype_switch = (int(sw["epoch"]), str(sw.get("compute_dtype", "float32"))) if sw else None
-        self.train_step = make_train_step(self.model, self.optimizer, self.loss_coef)
-        self.val_step = make_val_step(self.model, self.loss_coef)
+        self.train_step = make_train_step(self.model, self.optimizer, self.loss_coef, self.mesh)
+        self.val_step = make_val_step(self.model, self.loss_coef, self.mesh)
         self.uses_missing = self.model.mode != "hyper_rec"
         self.epoch_mode = str(tr.get("epoch_mode", "step"))
         if self.epoch_mode not in ("step", "scan"):
@@ -276,6 +364,24 @@ class Trainer:
         self._maybe_restore()
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _make_mesh(par: dict, batch_size: int, use_mesh: bool | None) -> Mesh | None:
+        """The (data, model) mesh ``training.parallel`` asks for, as the JAX
+        Trainer chooses it, or None for one-process training."""
+        world = distributed.world_size()
+        n_model = int(par.get("model", 1))
+        if world % n_model:
+            raise ValueError(f"parallel.model={n_model} does not divide {world} devices")
+        n_data = int(par.get("data") or world // n_model)
+        if use_mesh is None:
+            use_mesh = n_data * n_model > 1 and batch_size % n_data == 0
+        if not use_mesh:
+            if world > 1:
+                raise ValueError(f"{world} ranks but no mesh: training.parallel={par} with "
+                                 f"batch_size {batch_size} does not split over them")
+            return None
+        return make_mesh(n_data, n_model)
+
     def _next_generator(self) -> torch.Generator:
         """A generator on the device, seeded from the next value of the step counter."""
         self._seed_counter += 1
@@ -285,8 +391,10 @@ class Trainer:
         latest = ckpt.find_latest_resumable_epoch(self.weights_path, self.metrics_path)
         if latest <= 0:
             return
-        epoch, self.updates = ckpt.restore_model_state(
-            self.weights_path, self.metrics_path, latest, "latest", self.model, self.optimizer)
+        with unsharded(self.mesh, self.model, self.optimizer):
+            epoch, self.updates = ckpt.restore_model_state(
+                self.weights_path, self.metrics_path, latest, "latest", self.model,
+                self.optimizer)
         self.train_losses, self.val_losses, self.best_epoch_loss = ckpt.restore_metrics(
             self.metrics_path, epoch)
         s_path = join(self.weights_path, f"{epoch:05}_S.json")
@@ -367,7 +475,7 @@ class Trainer:
     def run(self, *, plot_samples: bool = True, tg_logger=None):
         """Epochs ``start_epoch..max_epoch``: train, plot, validate, save."""
         profiler = None
-        if self.profile_cfg.get("enable"):
+        if self.profile_cfg.get("enable") and self.is_writer:
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]
@@ -390,7 +498,7 @@ class Trainer:
             self.log.info(msg)
 
             plots = []
-            if plot_samples and latest is not None:
+            if plot_samples and self.is_writer and latest is not None:
                 from hyperpocket_tpu_torch.utils.plotting import save_plot
 
                 l_existing, l_gt, l_rec = latest
@@ -398,7 +506,7 @@ class Trainer:
                     plots.append(save_plot(l_existing[k].T, epoch, k, self.samples_path, "existing"))
                     plots.append(save_plot(l_rec[k].T, epoch, k, self.samples_path, "reconstructed"))
                     plots.append(save_plot(l_gt[k].T, epoch, k, self.samples_path, "gt"))
-            if tg_logger is not None:
+            if tg_logger is not None and self.is_writer:
                 tg_logger.log_images(plots[:9], msg)
 
             epoch_val_losses, epoch_val_samples = self.val_epoch(epoch)
@@ -412,7 +520,7 @@ class Trainer:
                 val_msg += "new best epoch"
             self.log.info(val_msg)
 
-            if plot_samples:
+            if plot_samples and self.is_writer:
                 from hyperpocket_tpu_torch.utils.plotting import save_plot
 
                 for cat, sample in epoch_val_samples.items():
@@ -427,14 +535,16 @@ class Trainer:
                                "seed_counter": int(self._seed_counter)}
                 args = (self.weights_path, self.metrics_path, epoch, self.model, self.optimizer,
                         self.updates, sched_state, self.train_losses, self.val_losses)
-                if self._async_ckpt is not None:
-                    saved = self._async_ckpt.submit(*args)
-                    self.log.debug("Epoch: %s %s", epoch,
-                                   "save submitted" if saved else "save deferred (writer busy)")
-                else:
-                    ckpt.save_checkpoint(*args)
-                    self.log.debug("Epoch: %s saved", epoch)
-                if tg_logger is not None:
+                # every rank gathers the tensor-parallel shards; rank 0 writes
+                with unsharded(self.mesh, self.model, self.optimizer):
+                    if self.is_writer and self._async_ckpt is not None:
+                        saved = self._async_ckpt.submit(*args)
+                        self.log.debug("Epoch: %s %s", epoch, "save submitted" if saved
+                                       else "save deferred (writer busy)")
+                    elif self.is_writer:
+                        ckpt.save_checkpoint(*args)
+                        self.log.debug("Epoch: %s saved", epoch)
+                if tg_logger is not None and self.is_writer:
                     tg_logger.log(f"Epoch: {epoch} saved")
         if profiler is not None:
             self._write_trace(profiler)

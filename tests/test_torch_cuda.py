@@ -1079,3 +1079,103 @@ def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0, 1]
     assert torch.isfinite(val_loss) and val_rec.shape == (4, 2048, 3)
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer over a one-rank NCCL group (NCCL takes one rank per card;
+# larger worlds run on gloo in tests/test_torch_parallel_*.py)
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    from hyperpocket_tpu_torch.parallel import distributed
+
+    assert distributed.initialize_multihost(f"file://{tmp_path}/store", 1, 0, device="cuda")
+    yield torch.distributed.group.WORLD
+    distributed.shutdown()
+
+
+@pytest.mark.parametrize("n, m", [(2048, 2048), (1024, 2048), (300, 136)])
+def test_ring_chamfer_on_one_rank_goes_through_the_nn_kernels(nccl_group, n, m):
+    """One hop: K1 twice at N == M, K5 once at N != M; the indices are K5's or
+    K1's own and the gradient that of ``nn_backward`` on them."""
+    from hyperpocket_tpu_torch.ops.chamfer import nn_backward
+    from hyperpocket_tpu_torch.ops.nn import nn_forward, nn_fused_planes
+    from hyperpocket_tpu_torch.parallel.point_sharding import (
+        chamfer_loss_point_sharded,
+        nn_distance_point_sharded,
+    )
+
+    a = _points(4, n, seed=20).requires_grad_(True)
+    b = _points(4, m, seed=21).requires_grad_(True)
+    before = (nn_one_direction.launches, nn_fused_planes.launches)
+    d1, i1, d2, i2 = nn_distance_point_sharded(a, b, nccl_group)
+    torch.cuda.synchronize()
+    launched = (nn_one_direction.launches - before[0], nn_fused_planes.launches - before[1])
+    assert launched == ((2, 0) if n == m else (0, 1))
+    w1, wi1, w2, wi2 = nn_forward(a.detach(), b.detach())
+    assert torch.equal(d1, w1) and torch.equal(i1, wi1)
+    assert torch.equal(d2, w2) and torch.equal(i2, wi2)
+    loss = chamfer_loss_point_sharded(a, b, nccl_group)
+    assert torch.equal(loss, (w1.sum() + w2.sum()))
+    ga, gb = torch.autograd.grad(loss, (a, b))
+    want_a, want_b = nn_backward(a.detach(), b.detach(), wi1, wi2, torch.ones_like(w1),
+                                 torch.ones_like(w2))
+    assert torch.allclose(ga, want_a, atol=1e-6) and torch.allclose(gb, want_b, atol=1e-6)
+
+
+def test_data_parallel_train_step_on_one_rank_is_the_one_process_step(nccl_group):
+    """The chair model at full width, fp32, B=8: the mesh step (global draws,
+    NCCL all-reduce of the gradients and losses) gives the one-process step's
+    bits, with deterministic algorithms (K2's ``index_add_`` sums by CUDA
+    atomics otherwise, and two one-process runs differ in the last bits)."""
+    import copy
+
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.parallel import make_mesh
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    config = _settings("config_3depn_chair.json")
+    base = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(9)).to("cuda")
+    tr = config["training"]
+    existing, missing, gt = (_points(8, n, seed=s) for n, s in ((1024, 30), (1024, 31), (2048, 32)))
+    outs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mesh in (None, make_mesh(1, 1)):
+            model = copy.deepcopy(base)
+            opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(model))
+            step = trainer.make_train_step(model, opt, float(tr["loss_coef"]), mesh)
+            gen = torch.Generator(device="cuda").manual_seed(33)
+            losses = [torch.stack(step(existing, missing, gt, gen, 1.0, 2048)[:3])
+                      for _ in range(2)]
+            outs.append((torch.stack(losses), [p.detach().clone() for p in model.parameters()]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(p, q) for p, q in zip(outs[0][1], outs[1][1]))
+
+
+def test_sharded_pairs_and_dp_serving_on_one_rank(nccl_group):
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.eval.metrics import pairwise_emd_cd_multi
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1)
+    rows, cols = _points(5, 256, seed=40), _points(14, 256, seed=41).view(2, 7, 256, 3)
+    want = pairwise_emd_cd_multi(rows, cols, 32)
+    got = pairwise_emd_cd_multi(rows, cols, 32, mesh=mesh)
+    assert all((g == w).all() for g, w in zip(got, want))
+    config = _settings("config_3depn_chair.json")
+    config["full_model"]["compute_dtype"] = "bfloat16"
+    model = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(10))
+    existing = _points(8, 1024, seed=42)
+    noise = _points(8, model.get_noise_size(), seed=43)[..., 0] * 0.1
+    plain = serving.make_serving_fn(model, num_output_points=2048, device="cuda")
+    dp = serving.make_serving_fn(model, num_output_points=2048, device="cuda", mesh=mesh)
+    assert torch.equal(dp(existing, noise, 5), plain(existing, noise, 5))
+    kw = dict(batch=8, n_existing=1024, num_output_points=2048, device="cuda")
+    artifact = serving.load_completion(serving.export_completion(model, **kw))
+    dp_artifact = serving.load_completion(serving.export_completion(model, data_parallel=1, **kw))
+    assert torch.equal(dp_artifact(existing, noise, 5), artifact(existing, noise, 5))

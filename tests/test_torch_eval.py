@@ -118,8 +118,14 @@ def test_pairwise_emd_cd_multi(rows):
 
 
 def test_pairwise_emd_cd_multi_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        pmetrics.pairwise_emd_cd_multi(REFS, SAMPLES[None], mesh=object())
+    """The mesh is ported (tests/test_torch_parallel_serve.py holds it to the
+    unsharded call over two ranks); one that needs more ranks than the
+    process has raises the JAX package's error."""
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        pmetrics.pairwise_emd_cd_multi(REFS, SAMPLES[None], mesh=make_mesh(2, 1),
+                                       device="cpu")
 
 
 def test_mmd_cov_and_multi():
@@ -461,7 +467,7 @@ def test_evaluate_generativity_matches_jax(models, tmp_path):
             assert res["port"][k] == want, k
         else:
             assert res["port"][k] == pytest.approx(want, rel=RTOL_METRIC), k
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="evaluate_generativity.parallel_data=2"):
         pexp.evaluate_generativity(_contexts(models)[1], datasets, str(tmp_path), 5,
                                    parallel_data=2)
 
@@ -481,8 +487,9 @@ def root_logging():
         logging.getLogger(name).setLevel(level)
 
 
-def test_cli_runs_experiments_with_latent_prior(models, tmp_path, root_logging):
-    """``cli.main`` in experiments mode, the config's latent prior fitted on val halves."""
+def test_cli_runs_experiments_with_latent_prior(models, tmp_path, root_logging, monkeypatch):
+    """``cli.main`` in experiments mode, the config's latent prior fitted on val halves;
+    in training mode it hands the config's Telegram logger to ``Trainer.run``."""
     jmodel, params, port = models
     root, results = tmp_path / "data", tmp_path / "results"
     make_synthetic_shapenet(root, n_models=6, n_gt=64, n_part=32)
@@ -526,20 +533,63 @@ def test_cli_runs_experiments_with_latent_prior(models, tmp_path, root_logging):
     np.testing.assert_allclose(ctx.latent_prior.scale_tril, want.scale_tril, rtol=RTOL_METRIC,
                                atol=1e-6)
 
-    with pytest.raises(NotImplementedError, match="Telegram"):
-        cli.main({**config, "mode": "training", "telegram_logger": {"enable": True}},
-                 device="cpu")
+    from hyperpocket_tpu_torch.train import trainer as ptrainer
+    from hyperpocket_tpu_torch.utils.telegram import TelegramLogger
+
+    runs = []
+
+    class Recorder(ptrainer.Trainer):
+        def run(self, **kwargs):
+            runs.append(kwargs)
+
+    monkeypatch.setattr(ptrainer, "Trainer", Recorder)
+    monkeypatch.setattr(TelegramLogger, "_instance", None)
+    cli.main({**config, "mode": "training",
+              "telegram_logger": {"enable": True, "bot_token": "t", "chat_id": "c"}},
+             device="cpu")
+    assert isinstance(runs[0]["tg_logger"], TelegramLogger)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(config)
 
 
-def test_unported_parts_raise(models, tmp_path):
-    _, pctx = _contexts(models)
-    with pytest.raises(NotImplementedError, match="plots"):
-        pexp.fixed(pctx, {"chair": _objects(1, 64, 1)}, str(tmp_path), 1, save_plots=True)
-    with pytest.raises(NotImplementedError, match="t-SNE"):
-        pexp.make_tsne_reduction(pctx, {}, str(tmp_path), 1)
+def test_unported_parts_raise(models, tmp_path, monkeypatch):
+    """The parts an earlier port left out now run as the JAX package's:
+    ``fixed(save_plots=True)`` writes the JAX package's file set, pngs
+    included, and ``make_tsne_reduction`` hands t-SNE the JAX package's
+    latents and target-network weights (a recording stand-in for
+    scikit-learn's TSNE, whose optimisation is not what is compared)."""
+    names = {}
+    for tag, ctx, mod in zip(("jax", "port"), _contexts(models), (jexp, pexp)):
+        mod.fixed(ctx, {"chair": _objects(2, 64, 1)}, str(tmp_path / tag), 1, batch_size=2,
+                  noises_per_item=1, num_points=64, save_plots=True)
+        names[tag] = sorted(os.listdir(tmp_path / tag / "fixed"))
+    assert names["port"] == names["jax"] and any(n.endswith(".png") for n in names["port"])
+
+    from sklearn import manifold
+
+    seen = {"jax": [], "port": []}
+
+    class RecordingTSNE:
+        def __init__(self, **kwargs):
+            self.kwargs = kwargs
+
+        def fit_transform(self, x):
+            seen[tag].append((np.asarray(x, np.float64), self.kwargs))
+            return np.asarray(x, np.float64)[:, :2]
+
+    monkeypatch.setattr(manifold, "TSNE", RecordingTSNE)
+    clouds = {"chair": _objects(4, 64, 2)}
+    for tag, ctx, mod in zip(("jax", "port"), _contexts(models), (jexp, pexp)):
+        mod.make_tsne_reduction(ctx, clouds, str(tmp_path / tag), 1, amount=3)
+    assert len(seen["port"]) == len(seen["jax"]) == 2  # latents, then target weights
+    for (got, got_kw), (want, want_kw) in zip(seen["port"], seen["jax"]):
+        assert got.shape == want.shape and got.shape[0] == 6 and got_kw == want_kw
+        np.testing.assert_allclose(got, want, rtol=RTOL_METRIC, atol=1e-5)
+    for f in ("latent_tsne", "tnw_tsne", "latent_dist", "tnw_dist"):
+        np.testing.assert_allclose(np.load(tmp_path / "port" / "temp_exp" / f"chair_{f}.npy"),
+                                   np.load(tmp_path / "jax" / "temp_exp" / f"chair_{f}.npy"),
+                                   rtol=RTOL_METRIC, atol=1e-5)
     with pytest.raises(FileNotFoundError, match="'fixed' experiment must run first"):
-        pexp.compute_mmd_tmd_uhd(pctx, {"chair": []}, str(tmp_path), 1)
+        pexp.compute_mmd_tmd_uhd(_contexts(models)[1], {"chair": []}, str(tmp_path), 1)
     assert set(pexp.experiment_functions_dict) == set(jexp.experiment_functions_dict)

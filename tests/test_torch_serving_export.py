@@ -183,9 +183,16 @@ def _plain_program() -> bytes:
 
 
 def test_data_parallel_export():
+    """A data_parallel=2 artifact holds the per-rank program and refuses a
+    one-process world; an indivisible batch raises, as in the JAX package.
+    tests/test_torch_parallel_serve.py serves one over two ranks."""
     model = FullModel.from_config(tiny_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _export(model, data_parallel=2)
+    two = _export(model, data_parallel=2)
+    assert serving.artifact_meta(two)["data_parallel"] == 2
+    with pytest.raises(ValueError, match="data_parallel=2"):
+        serving.load_completion(two)
+    with pytest.raises(ValueError, match="not divisible by data_parallel 3"):
+        _export(model, data_parallel=3)
     existing, noise = _inputs(model)
     one = serving.load_completion(_export(model, data_parallel=1))
     assert torch.equal(one(existing, noise, 3), serving.load_completion(_export(model))(

@@ -480,13 +480,19 @@ def test_moment_dtype_with_amsgrad_raises():
 
 
 def test_trainer_refuses_what_the_port_lacks(data_root, tmp_path):
+    """A one-process run asked for more ranks raises the JAX package's errors
+    (``make_mesh``'s and the Trainer's model-axis check); a forced mesh
+    needs a process group (tests/test_torch_parallel_*.py run the groups)."""
     cfg = _config(data_root, tmp_path / "mesh")
     cfg["training"]["parallel"] = {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         trainer.Trainer(cfg, device="cpu")
     cfg["training"]["parallel"] = {"data": None, "model": 2}
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(ValueError, match="parallel.model=2 does not divide 1 devices"):
         trainer.Trainer(cfg, device="cpu")
+    cfg["training"]["parallel"] = {"data": None, "model": 1}
+    with pytest.raises(RuntimeError, match="process group"):
+        trainer.Trainer(cfg, device="cpu", use_mesh=True)
     cfg["training"]["parallel"] = {"data": None, "model": 1}
     cfg["training"]["epoch_mode"] = "scan"
     t = trainer.Trainer(cfg, device="cpu")
