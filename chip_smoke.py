@@ -200,6 +200,23 @@ Phases, each fatal on any error:
    B=256, bit-equal to ``make_serving_fn`` and to the plain artifact, in
    clouds/s beside them. Phases 22-25 print their wall time.
 
+26. scanned epochs (``training.epoch_mode: "scan"``, ``train/epoch_scan.py``):
+   ``Trainer`` in "scan" and in "step" mode on the full-width chair config
+   at B=64 on a 130-chair x 4-half 3D-EPN corpus the smoke writes (8
+   uniform train steps and a ragged one of 8 an epoch, ``drop_last``
+   false; val at B=60, 8 uniform batches and one of 40), in fp32, bf16 and
+   the fast config with ``HPCD_TRUNK_FUSED_FWD=1`` (K8; its dtype switch at
+   epoch 1, so epoch 2 recaptures in fp32), 2 epochs and their val epochs
+   each, with deterministic algorithms: loss rows, val losses and
+   parameters bit-equal to the step loop's; 2 scanned epochs and 2
+   scanned val categories, 16 + 16 replays, and launches equal to the step
+   loop's plus one rehearsal step a compute dtype. Then, with the default
+   algorithms, on an epoch's uniform prefix already on the card (no
+   loader), train and val: ms per step both ways in turns (step, scan,
+   scan, step, step, scan), the capture's ms and each way's busy share over
+   one epoch (``torch.profiler``; the scan's over its replays, and with its
+   capture).
+
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
 B=256 and B=64 (and the bf16 artifact of phase 19 at both), one fp32 and
 one bf16 train step at B=64 (the bf16 one also with K8 and with K11's
@@ -264,6 +281,7 @@ HEAD_N, HEAD_K = 19011, 2048
 FUSED_STEP_RTOL = 1e-2  # bf16 compute: autograd rounds dW to bf16, K11 keeps it fp32
 TRAIN_MODELS, TRAIN_SAMPLES = 32, 4  # 128 train items: 2 steps of B=64 an epoch
 DP_TRAIN_STEPS = 3  # phase 22's epoch: 48 chairs x 4 halves at B=64
+SCAN_MODELS = 130  # phase 26: 520 items, 8 steps of B=64 and one of 8 an epoch
 # the H100 SXM's published peaks: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores and the fp32
 # issue rate (instructions/s, half the FMA-counted FLOP/s)
@@ -2538,6 +2556,227 @@ def drive_dp_serving(model, device, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the scanned epochs (training.epoch_mode "scan", train/epoch_scan.py)
+
+
+def _all_counts() -> dict:
+    from hyperpocket_tpu_torch.ops import launch_counters
+
+    return {(attr if attr != "launches" else owner.__name__): getattr(owner, attr)
+            for owner, attr in launch_counters()}
+
+
+def _zero_all() -> None:
+    from hyperpocket_tpu_torch.ops import launch_counters
+
+    for owner, attr in launch_counters():
+        setattr(owner, attr, 0)
+
+
+def _scan_trainer(name: str, cfg_name: str, dtype, mode: str, data: Path, tmp: Path, device):
+    from hyperpocket_tpu_torch.train import trainer as trainer_mod
+
+    config = json.loads((ROOT / "settings" / cfg_name).read_text())
+    config["dataset"]["path"] = str(data)
+    config["results_root"] = str(tmp / f"{name}_{mode}")
+    tr = config["training"]
+    tr["epoch_mode"] = mode
+    tr["dataloader"]["train"]["drop_last"] = False
+    if dtype is not None:
+        tr["compute_dtype"] = dtype
+    if "compute_dtype_switch" in tr:
+        tr["compute_dtype_switch"]["epoch"] = 1  # epoch 2 crosses to fp32 and recaptures
+    return trainer_mod.Trainer(config, device=device)
+
+
+def _epoch_timings(t_step, t_scan, epoch: int) -> dict:
+    """ms per step of the step loop and of the scanned epoch over one
+    epoch's uniform prefix (the batches already on the card, so no loader),
+    train and val, in turns (step, scan, scan, step, step, scan); the
+    capture's ms; the device's busy share over one epoch each way
+    (``torch.profiler``)."""
+    from hyperpocket_tpu_torch.train.trainer import _uniform_prefix
+
+    batches, gens = t_scan._collect(t_scan.train_loader, epoch)
+    n = _uniform_prefix(batches)
+    ex, mi, gt = t_scan._stacked(batches[:n])
+    cat = next(iter(t_scan.val_loaders))
+    vbatches, vgens = t_scan._collect(t_scan.val_loaders[cat], epoch)
+    vn = _uniform_prefix(vbatches)
+    vex, vmi, vgt = t_scan._stacked(vbatches[:vn])
+    points = int(gt.shape[2])
+
+    def step_epoch(_=None):
+        for s in range(n):
+            t_step.train_step(ex[s], None if mi is None else mi[s], gt[s], gens[s],
+                              float(epoch), points)
+
+    def scan_epoch(_=None):
+        t_scan._epoch_scan_fn(ex, mi, gt, gens[:n], float(epoch), points)
+
+    def val_step_epoch(_=None):
+        for s in range(vn):
+            t_step.val_step(vex[s], None if vmi is None else vmi[s], vgt[s], vgens[s],
+                            float(epoch), points)
+
+    def val_scan_epoch(_=None):
+        t_scan._val_epoch_scan_fn(vex, vmi, vgt, vgens[:vn], float(epoch), points)
+
+    def wall_ms(fn, capture_of=None) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        capture = (capture_of.capture_ms or 0.0) if capture_of is not None else 0.0
+        return ms, capture
+
+    out = {"train_steps": n, "val_steps": vn}
+    for kind, step_fn, scan_fn, fn_obj, count in (
+            ("train", step_epoch, scan_epoch, t_scan._epoch_scan_fn, n),
+            ("val", val_step_epoch, val_scan_epoch, t_scan._val_epoch_scan_fn, vn)):
+        turns = {"step": [], "scan": [], "scan_with_capture": [], "capture_ms": []}
+        for mode in ("step", "scan", "scan", "step", "step", "scan"):
+            if mode == "step":
+                ms, _ = wall_ms(step_fn)
+                turns["step"].append(ms / count)
+            else:
+                ms, capture = wall_ms(scan_fn, fn_obj)
+                turns["scan"].append((ms - capture) / count)
+                turns["scan_with_capture"].append(ms / count)
+                turns["capture_ms"].append(capture)
+        res = {f"{k}_ms_per_step": v for k, v in turns.items() if k != "capture_ms"}
+        res["capture_ms"] = turns["capture_ms"]
+        # busy share: the device time of one epoch over its wall time without
+        # the profiler; the scan's over its replays, and with its capture
+        for mode, fn in (("step", step_fn), ("scan", scan_fn)):
+            kernels = _device_ms_by_kernel(lambda s, fn=fn: fn(), 1)
+            device_ms = sum(kernels.values())
+            check(device_ms > 0, f"scan timing: torch.profiler saw no device time ({mode})")
+            res[f"{mode}_device_ms"] = device_ms
+            res[f"{mode}_busy"] = device_ms / (statistics.median(turns[mode]) * count)
+        res["scan_busy_with_capture"] = res["scan_device_ms"] / (
+            statistics.median(turns["scan"]) * count + statistics.median(turns["capture_ms"]))
+        out[kind] = res
+    return out
+
+
+def drive_scan_epochs(device, tmp: Path) -> dict:
+    """Phase 26: ``Trainer`` with ``epoch_mode`` "scan" beside "step" on the
+    full-width chair config, B=64, a 3D-EPN corpus of SCAN_MODELS chairs x 4
+    halves the smoke writes (8 uniform train steps and a ragged one of 8 an
+    epoch, ``drop_last`` false; val at B=60: 8 uniform batches and one of
+    40), in fp32, bf16 and the fast config with K8 (its dtype switch at
+    epoch 1, so epoch 2 recaptures in fp32), 2 epochs and their val epochs
+    each, with deterministic algorithms: loss rows, val losses and
+    parameters bit-equal; replays, scanned epochs and launches (the scan's
+    are the step loop's plus one rehearsal step a new dtype). Then, with
+    the default algorithms, ms per step both ways over an epoch's uniform
+    prefix on the card, train and val, in turns (step, scan, scan, step,
+    step, scan), the capture's ms and the busy share."""
+    data = tmp / "train_data"
+    write_train_corpus(data, SCAN_MODELS)
+    items = SCAN_MODELS * TRAIN_SAMPLES
+    train_batches, val_batches = -(-items // TRAIN_BATCH), -(-items // VAL_BATCH)
+    out = {}
+    cases = (("fp32", "config_3depn_chair.json", "float32", False),
+             ("bf16", "config_3depn_chair.json", "bfloat16", False),
+             ("bf16_k8", "config_3depn_chair_fast.json", None, True))
+    for name, cfg_name, dtype, k8 in cases:
+        t0 = time.perf_counter()
+        if k8:
+            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+        try:
+            trainers, runs = {}, {}
+            for mode in ("step", "scan"):
+                t = _scan_trainer(name, cfg_name, dtype, mode, data, tmp, device)
+                rows, vals, dtypes = [], [], []
+                _zero_all()
+                with deterministic():
+                    for epoch in (1, 2):
+                        t._maybe_switch_dtype(epoch)
+                        dtypes.append(t.model.compute_dtype)
+                        t.train_epoch(epoch)
+                        rows.append(np.asarray(t.last_step_losses).copy())
+                        vals.append(float(t.val_epoch(epoch)[0]["total"][0]))
+                    torch.cuda.synchronize()
+                launches = {k: v for k, v in _all_counts().items() if v}
+                runs[mode] = {"rows": rows, "val": vals, "dtypes": dtypes, "launches": launches,
+                              "params": [p.detach().clone() for p in t.model.parameters()],
+                              "scan_invocations": t.scan_invocations,
+                              "val_scan_invocations": t.val_scan_invocations}
+                if mode == "scan":
+                    fn, vfn = t._epoch_scan_fn, t._val_epoch_scan_fn
+                    runs[mode].update(
+                        replays=fn.replays, val_replays=vfn.replays,
+                        rehearsals=fn.rehearsals, val_rehearsals=vfn.rehearsals,
+                        launches_per_replay=fn.launches_per_replay,
+                        val_launches_per_replay=vfn.launches_per_replay,
+                        capture_ms=fn.capture_ms, val_capture_ms=vfn.capture_ms)
+                trainers[mode] = t
+            step, scan = runs["step"], runs["scan"]
+            bf16_epochs = sum(d == "bfloat16" for d in step["dtypes"])
+            n_dtypes = len(set(step["dtypes"]))
+            want_step = {"nn_one_direction": 2 * 2 * train_batches,
+                         "nn_min_fused": 2 * val_batches, "decode_batch": 2 * val_batches,
+                         "trunk_pooled": 2 * val_batches * bf16_epochs,
+                         "trunk_pooled_argmax": 2 * train_batches * bf16_epochs * k8}
+            want_step = {k: v for k, v in want_step.items() if v}
+            rehearsal = {"nn_one_direction": 2 * n_dtypes, "nn_min_fused": n_dtypes,
+                         "decode_batch": n_dtypes, "trunk_pooled": 2 * bool(bf16_epochs),
+                         "trunk_pooled_argmax": 2 * bool(bf16_epochs) * k8}
+            want_scan = {k: v + rehearsal[k] for k, v in want_step.items()}
+            summary = {k: v for k, v in scan.items() if k not in ("rows", "params")}
+            summary["step_launches"] = step["launches"]
+            summary["rows_bit_equal"] = all(np.array_equal(a, b)
+                                            for a, b in zip(scan["rows"], step["rows"]))
+            summary["val_bit_equal"] = scan["val"] == step["val"]
+            summary["params_bit_equal"] = all(torch.equal(a, b)
+                                              for a, b in zip(scan["params"], step["params"]))
+            print(f"scan {name}: dtypes {scan['dtypes']}, rows per epoch "
+                  f"{[len(r) for r in scan['rows']]}, val {scan['val']} (step loop "
+                  f"{step['val']}); bit-equal rows {summary['rows_bit_equal']}, val "
+                  f"{summary['val_bit_equal']}, parameters {summary['params_bit_equal']}; "
+                  f"scanned epochs {scan['scan_invocations']}, categories "
+                  f"{scan['val_scan_invocations']}, replays {scan['replays']} + "
+                  f"{scan['val_replays']}, rehearsals {scan['rehearsals']} + "
+                  f"{scan['val_rehearsals']}; launches scan {scan['launches']}, step loop "
+                  f"{step['launches']}; per replay {scan['launches_per_replay']} / "
+                  f"{scan['val_launches_per_replay']}")
+            check([len(r) for r in scan["rows"]] == [train_batches] * 2
+                  and all(np.isfinite(r).all() for r in scan["rows"]),
+                  f"scan {name}: rows {[r.tolist() for r in scan['rows']]}")
+            check(summary["rows_bit_equal"] and summary["val_bit_equal"]
+                  and summary["params_bit_equal"],
+                  f"scan {name}: the scanned epochs differ from the step loop")
+            check((scan["scan_invocations"], scan["val_scan_invocations"]) == (2, 2)
+                  and (scan["replays"], scan["val_replays"]) == (2 * (train_batches - 1),
+                                                                 2 * (val_batches - 1))
+                  and (scan["rehearsals"], scan["val_rehearsals"]) == (n_dtypes, n_dtypes),
+                  f"scan {name}: {summary}")
+            check(step["launches"] == want_step, f"scan {name}: step loop launched "
+                  f"{step['launches']}, expected {want_step}")
+            check(scan["launches"] == want_scan, f"scan {name}: scan launched "
+                  f"{scan['launches']}, expected {want_scan}")
+            # timing with the default algorithms, in the case's compute dtype
+            for t in trainers.values():
+                t.model.compute_dtype = "bfloat16" if k8 else dtype
+            summary["timing"] = _epoch_timings(trainers["step"], trainers["scan"], 3)
+            print(f"scan {name} timing: {json.dumps(summary['timing'])}")
+        finally:
+            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+            # the fast config's matmul_precision "high" turned TF32 on for the process
+            from hyperpocket_tpu_torch.train.trainer import set_matmul_precision
+
+            set_matmul_precision("highest")
+        del trainers, runs, t
+        torch.cuda.empty_cache()
+        summary["wall_s"] = time.perf_counter() - t0
+        out[name] = summary
+    return out
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -2732,16 +2971,29 @@ def main(argv=None) -> int:
         print(f"{name}: {json.dumps(parallel[name])} on {card}")
         torch.cuda.empty_cache()
     print(f"phases 22-25 wall s: {json.dumps(walls)}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scan = drive_scan_epochs(device, Path(tmp))
+    print(f"scan epochs: {json.dumps(scan)} on {card}")
+    print(f"phase 26 wall s: {time.perf_counter() - t0!r}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
 
+    # each kernel's launches in phase 26's scanned runs (fp32, bf16, bf16 + K8),
+    # replays included
+    scan_launches = collections.Counter()
+    for case in scan.values():
+        scan_launches.update(case["launches"])
+
     def entry(name, source, replaces, launches, max_abs_err, t, ms_key="ms",
-              library_key="library_ms"):
+              library_key="library_ms", scan_key=None, scan_case=None):
         return {"name": name, "route": "cuda", "source": f"hyperpocket_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 "ms": t[ms_key], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t[library_key]}
+                "bound_by": t["bound_by"], "library_ms": t[library_key],
+                "scan_launches": (scan[scan_case]["launches"].get(scan_key, 0) if scan_case
+                                  else scan_launches[scan_key] if scan_key else 0)}
 
     fp32 = training["float32"]
     fast = cli_training["config_3depn_chair_fast.json"]["runs"][0]["launches"]
@@ -2749,9 +3001,9 @@ def main(argv=None) -> int:
     kernels = [
         entry("trunk_pool", "trunk_pool.cu", "hyperpocket_tpu/ops/pallas_encoder.py:198",
               sl["launches"], kern["max_abs_err"], kern["times"]["B256_N1024"],
-              ms_key="kernel_ms", library_key="bf16_matmul_chain_ms"),
+              ms_key="kernel_ms", library_key="bf16_matmul_chain_ms", scan_key="trunk_pooled"),
         *(entry(name, f"{name}.cu", f"hyperpocket_tpu/ops/pallas_nn.py:{line}", launches,
-                nn_kern["errs"][name], nn_kern["times"][name])
+                nn_kern["errs"][name], nn_kern["times"][name], scan_key=name)
           for name, line, launches in (
               ("nn_one_direction", 125, fp32["train_launches"]["nn_one_direction"]),
               ("nn_min_fused", 223, fp32["val_launches"]["nn_min_fused"]))),
@@ -2761,7 +3013,8 @@ def main(argv=None) -> int:
               ("emd_match_cost", 273, eval_launches["emd_match_cost"]),
               ("emd_match_cost_grad", 414, descent["launches"]["emd_match_cost_grad"]))),
         entry("trunk_pool_argmax", "trunk_pool.cu", "hyperpocket_tpu/ops/pallas_encoder.py:279",
-              fast["trunk_pool_argmax"], argmax["max_abs_err"], argmax["times"]["B64_N1024"]),
+              fast["trunk_pool_argmax"], argmax["max_abs_err"], argmax["times"]["B64_N1024"],
+              scan_key="trunk_pooled_argmax"),
         entry("head_adam", "head_adam.cu", "hyperpocket_tpu/ops/pallas_head_adam.py:88",
               fused["fused"]["launches"], head["max_abs_err"], head["times"]),
         entry("nn_fused_planes", "nn_fused_planes.cu", "hyperpocket_tpu/ops/pallas_nn.py:386",
@@ -2772,11 +3025,13 @@ def main(argv=None) -> int:
         # val step's
         entry("decode_batch", "decode_batch_tc.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
               sl["decode_launches"], k10["cases"][f"bf16_B{BENCH_BATCH}"]["max_abs_err"],
-              k10["times"][f"bf16_B{BENCH_BATCH}"], library_key="chain_ms"),
+              k10["times"][f"bf16_B{BENCH_BATCH}"], library_key="chain_ms",
+              scan_key="decode_batch", scan_case="bf16"),
         entry("decode_batch_fp32", "decode_batch.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
               fp32["val_launches"]["decode_batch"],
               k10["cases"][f"fp32_B{BENCH_BATCH}"]["max_abs_err"],
-              k10["times"][f"fp32_B{BENCH_BATCH}"], library_key="chain_ms"),
+              k10["times"][f"fp32_B{BENCH_BATCH}"], library_key="chain_ms",
+              scan_key="decode_batch", scan_case="fp32"),
         # the same source's bf16 instantiation, for bf16 widths the tensor cores' kernel
         # cannot hold: a 272-channel model's inference forward (phase 18)
         entry("decode_batch_bf16_simt", "decode_batch.cu",

@@ -16,13 +16,18 @@ sigma)``. ``apply(training=False)`` is the inference forward, under
 bf16, the fused decode K10 (the op ``hyperpocket::decode_batch``) in place
 of the training forward's ``bmm`` chain: the JAX package keeps the chain in
 both modes, because its Pallas decode lost on the TPU; on the H100 the
-kernel is the faster of the two (PERF.md). fp64 and fp16 keep the chain.
+kernel is the faster of the two (PERF.md). fp64 and fp16 keep the chain,
+and so does a decoder wider than K10's limits (more than 16 layers or a
+layer above 4096 channels): ``decode_route``, fixed from the configured
+widths when the model is built, is "k10" or "chain", the JAX model's route
+at every width.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import logging
 from typing import Any
 
 import torch
@@ -70,6 +75,13 @@ class FullModel(nn.Module):
             self.latent_size, list(self.target_layer_out_channels), use_bias=hyper_use_bias,
             target_network_use_bias=target_use_bias, freeze_heads=freeze_heads,
             generator=generator)
+        self.decode_route = ("k10" if decoder.takes_widths(self.target_layer_out_channels)
+                             else "chain")
+        if self.decode_route == "chain":
+            logging.getLogger("hyperpocket_tpu_torch").info(
+                "target widths %s exceed K10's %d layers of %d channels: the inference "
+                "forward decodes through the bmm chain", list(self.target_layer_out_channels),
+                decoder.MAX_LAYERS, decoder.MAX_WIDTH)
 
     @classmethod
     def from_config(cls, config: dict[str, Any],
@@ -124,10 +136,11 @@ class FullModel(nn.Module):
         return self if cd == torch.float32 else copy.deepcopy(self).to(cd)
 
     def fused_decode(self, training: bool) -> bool:
-        """Whether the forward decodes through K10: inference in fp32 or bf16.
-        Decided from these two alone, before any launch: on a card, widths
-        the kernel cannot take and a failing kernel raise."""
-        return not training and self.compute_torch_dtype in (torch.float32, torch.bfloat16)
+        """Whether the forward decodes through K10: inference in fp32 or bf16
+        on ``decode_route`` "k10". Decided before any launch, from these and
+        the widths alone: on a card a failing kernel raises."""
+        return (not training and self.decode_route == "k10"
+                and self.compute_torch_dtype in (torch.float32, torch.bfloat16))
 
     def _get_latent(self, existing, missing, generator, training, noise, eps):
         """Mode-specific ``(latent, mu, sigma)``; mu and sigma only when training a VAE.

@@ -11,7 +11,8 @@ layer but the last. ``decode_batch`` is the custom op
 256 channels) or ``csrc/decode_batch.cu`` (the CUDA cores: fp32, and the
 bf16 widths the tensor-core kernel cannot hold), chosen from the widths
 before any launch, and raises on anything else (more than ``MAX_LAYERS``
-layers, a layer wider than ``MAX_WIDTH``); its CPU kernel runs
+layers, a layer wider than ``MAX_WIDTH``: ``takes_widths``, by which the
+model sends such decoders to the ``bmm`` chain); its CPU kernel runs
 ``decode_batch_reference``, and its fake kernel gives the points' shape, so
 that ``torch.export`` keeps K10 as one node of an exported serving program.
 All accumulate in fp32 and round each layer to the points' dtype in one of
@@ -137,6 +138,15 @@ _QUERY_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 _LAUNCH_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
 
 
+def takes_widths(layer_out_channels) -> bool:
+    """Whether the card's kernels take these hidden widths: at most
+    ``MAX_LAYERS`` layers of 1 to ``MAX_WIDTH`` channels (with the 3-channel
+    input and output). ``models/full_model.py`` routes the inference decode
+    by it when a model is built."""
+    ch = _widths(layer_out_channels)
+    return len(ch) - 1 <= MAX_LAYERS and max(ch) <= MAX_WIDTH and min(ch) >= 1
+
+
 class _Plan(NamedTuple):
     """What a launch for some widths needs, computed once."""
     widths: ctypes.Array   # the channel counts as a C array
@@ -155,7 +165,7 @@ def _plan(channels: tuple, use_bias: bool, bf16: bool) -> _Plan:
     kernel. Raises for more than ``MAX_LAYERS`` layers or a layer wider than
     ``MAX_WIDTH`` channels. Builds the kernels' library."""
     ch = _widths(channels)
-    if len(ch) - 1 > MAX_LAYERS or max(ch) > MAX_WIDTH or min(ch) < 1:
+    if not takes_widths(channels):
         raise ValueError(f"decode_batch takes at most {MAX_LAYERS} layers of 1 to {MAX_WIDTH} "
                          f"channels, got the widths {ch}")
     widths = (ctypes.c_int * len(ch))(*ch)

@@ -37,7 +37,11 @@ def sample_uniform_ball_batch(generator: torch.Generator, batch: int, num_points
 
 def progressive_normalize(points: torch.Tensor, epoch, max_epoch: int) -> torch.Tensor:
     """Push points with norm < coef onto the sphere of radius coef."""
-    epoch = torch.as_tensor(epoch, dtype=points.dtype, device=points.device)
+    # a fill, not a copy from the host: a copy from pageable memory would
+    # wait for the card's queue at every draw
+    epoch = (epoch.to(device=points.device, dtype=points.dtype)
+             if isinstance(epoch, torch.Tensor)
+             else torch.full((), float(epoch), dtype=points.dtype, device=points.device))
     denom = max(max_epoch - 1, 1)
     coef = torch.where(epoch <= max_epoch, (epoch - 1.0) / denom, torch.ones_like(epoch))
     norms = points.norm(dim=-1, keepdim=True)

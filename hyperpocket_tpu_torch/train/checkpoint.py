@@ -44,7 +44,7 @@ import torch
 from hyperpocket_tpu_torch.convert import _jax_layout, jax_leaf_names, jax_leaves, load_jax_npz
 from hyperpocket_tpu_torch.models.full_model import FullModel
 from hyperpocket_tpu_torch.train.config import get_results_dir_path
-from hyperpocket_tpu_torch.train.optim import AdamLowp, OptaxAmsgrad, OptaxRMSprop
+from hyperpocket_tpu_torch.train.optim import AdamLowp, OptaxAmsgrad, OptaxRMSprop, step_count
 
 _EPOCH_RE = re.compile(r"^(?P<n>\d+)_(model\.npz|model\.pth|[DEG]\.pth)$")
 _BF16_WORDS = np.dtype("V2")
@@ -186,9 +186,12 @@ def load_optimizer_leaves(path: str, model: FullModel, optimizer) -> int:
     for _, p in params:
         state = optimizer.state[p]
         if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
-            state["step"] = torch.tensor(float(count), dtype=torch.float32)
+            # a capturable Adam keeps its count beside the parameter
+            capturable = optimizer.param_groups[0]["capturable"]
+            state["step"] = torch.tensor(float(count), dtype=torch.float32,
+                                         device=p.device if capturable else "cpu")
         elif has_count:
-            state["step"] = count
+            state["step"] = step_count(p, count)
     return count
 
 

@@ -1,0 +1,254 @@
+"""Scanned epochs (``epoch_mode: "scan"``): an epoch's batches as replays of one CUDA graph.
+
+The machinery behind ``train/trainer.py::make_train_epoch_scan`` and
+``make_val_epoch_scan``, the port's counterparts of the JAX package's
+``lax.scan`` of the step body over an epoch's stacked batches
+(``hyperpocket_tpu/train/trainer.py::make_train_epoch_scan``,
+``make_val_epoch_scan``: one dispatch an epoch). ``EpochScan(body, ...)``
+is called as ``epoch_fn(existing, missing, gt, generators, epoch,
+num_points)`` with the prefix stacked on the device, (S, B, N, 3) each
+(``upload_stacked`` puts it there in one host-to-device copy), and one
+seeded generator a step; it returns the S rows the body reports, stacked,
+and the last step's reconstruction.
+
+On a CUDA device the body (the train step: forward, backward, gradient
+all-reduce and optimizer update; or the val step: forward and loss) is
+captured once a call into a ``torch.cuda.CUDAGraph`` over static buffers
+and replayed once a step: the host issues a replay, the copies of the
+step's batch and its two draws, where an eager step issues hundreds of
+launches. On the CPU the same call runs the body eagerly on the same
+buffers.
+
+* Draws and inputs: before each replay the host copies batch s into the
+  static inputs and makes the step's two draws from its generator into the
+  static ``vae_eps``/``ball_points`` (``FullModel.random_inputs``, in the
+  order ``apply`` draws them), so the trajectory is the step loop's. A copy
+  an input (0.8-1.6 MB at B=64, device to device) keeps the captured body
+  the step function itself; a step index kept on the device would need a
+  body that indexes the stacked epoch, which the step function does not.
+* The learning rate enters the captured kernels as the float the optimizer
+  held at capture, so every call captures anew: once an epoch, after the
+  Trainer has set the epoch's rate.
+* Warm-up: cuBLAS, NCCL and the optimizer make their state at first use,
+  which a capture must not record. The first capture of each dtype and set
+  of shapes rehearses the body eagerly first, on the capture's stream, then
+  puts back the parameters and the optimizer's state; slots the rehearsal
+  created are zeroed, which is each optimizer's state before its first
+  update (``train/optim.py``; SGD's momentum from zero equals its
+  first-step copy of the gradient). ``rehearsals`` counts them; their
+  launches ran on the card and stay counted.
+* Launch counts: a wrapper counts one launch when the capture records it
+  (``ops.launch_counters``). The capture's counts are taken back and added
+  again at every replay, so each ``.launches`` is the number of launches
+  the card ran; ``launches_per_replay`` holds them.
+* Failure: the capture runs under ``torch.cuda.set_sync_debug_mode("error")``.
+  An operation that syncs the host, or any other error of the capture,
+  raises ``GraphCaptureError`` naming the line of the body where it arose.
+  Nothing falls back to the step loop.
+"""
+
+from __future__ import annotations
+
+import time
+import traceback
+from typing import Callable
+
+import numpy as np
+import torch
+
+from hyperpocket_tpu_torch.ops import launch_counters
+
+_ALIGN = 64  # bytes between the stacked arrays in the upload buffer
+
+
+class GraphCaptureError(RuntimeError):
+    """The step body could not be captured as a CUDA graph."""
+
+
+def upload_stacked(parts: list[list[np.ndarray]], device: torch.device) -> list[torch.Tensor]:
+    """Each list of equal-shaped arrays stacked to (S, ...) on ``device``.
+
+    The stacks are written once into one host buffer (pinned on a card) and
+    reach the device in one copy; each keeps its arrays' dtype.
+    """
+    device = torch.device(device)
+    shapes = [(len(p), *np.shape(p[0])) for p in parts]
+    dtypes = [np.result_type(*p) for p in parts]
+    sizes = [int(np.prod(s)) * np.dtype(d).itemsize for s, d in zip(shapes, dtypes)]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // _ALIGN) * _ALIGN)
+    host = torch.empty(offsets[-1], dtype=torch.uint8, pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    for p, shape, dt, off, n in zip(parts, shapes, dtypes, offsets, sizes):
+        np.stack(p, out=buf[off:off + n].view(dt).reshape(shape))
+    dev = host.to(device, non_blocking=True)
+    return [dev[off:off + n].view(torch.from_numpy(np.empty(0, dt)).dtype).view(shape)
+            for shape, dt, off, n in zip(shapes, dtypes, offsets, sizes)]
+
+
+def _counts() -> list[int]:
+    return [getattr(owner, attr) for owner, attr in launch_counters()]
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost frame of ``exc`` outside torch: the line that failed."""
+    frames = traceback.extract_tb(exc.__traceback__)
+    own = [f for f in frames if "/torch/" not in f.filename.replace("\\", "/")]
+    f = (own or frames)[-1]
+    return f"{f.filename}:{f.lineno} ({f.line})"
+
+
+class EpochScan:
+    """One step body run over an epoch's stacked batches.
+
+    ``body(existing, missing, gt, epoch, num_points, vae_eps, ball_points)
+    -> (row, rec)`` is one step on the static buffers; ``row`` (the step's
+    losses) and ``rec`` are its outputs. ``draw_rows`` multiplies a batch's
+    rows into the batch the draws are made for (the data axis of a mesh,
+    whose ranks draw the global batch). ``optimizer``, when the body updates
+    parameters, is what a rehearsal puts back.
+
+    ``replays``, ``captures``, ``rehearsals``, ``capture_ms`` (host ms of the
+    last capture, from an idle card, instantiation included) and
+    ``launches_per_replay`` report the CUDA route; the CPU route runs the
+    body eagerly and leaves them.
+    """
+
+    def __init__(self, body: Callable, *, model, optimizer=None, draw_rows: int = 1,
+                 name: str = "step"):
+        self.body, self.model, self.optimizer = body, model, optimizer
+        self.draw_rows, self.name = draw_rows, name
+        self.replays = self.captures = self.rehearsals = 0
+        self.capture_ms: float | None = None
+        self._per_replay: list[int] = []  # each launch counter's launches a replay
+        self._rehearsed: set = set()
+        self._stream: torch.cuda.Stream | None = None
+
+    def __call__(self, existing: torch.Tensor, missing: torch.Tensor | None, gt: torch.Tensor,
+                 generators: list, epoch, num_points: int):
+        steps = existing.shape[0]
+        if len(generators) != steps:
+            raise ValueError(f"{steps} stacked batches but {len(generators)} generators")
+        stacked = {"existing": existing, "missing": missing, "gt": gt}
+        static = {k: None if v is None else v[0].clone() for k, v in stacked.items()}
+        batch = existing.shape[1] * self.draw_rows
+
+        def draw(s):
+            return self.model.random_inputs(generators[s], batch, num_points, epoch)
+
+        static["vae_eps"], static["ball_points"] = draw(0)
+
+        def fill(s):
+            for k, v in stacked.items():
+                if v is not None:
+                    static[k].copy_(v[s])
+            for k, v in zip(("vae_eps", "ball_points"), draw(s)):
+                if v is not None:
+                    static[k].copy_(v)
+
+        def run():
+            return self.body(static["existing"], static["missing"], static["gt"], epoch,
+                             num_points, static["vae_eps"], static["ball_points"])
+
+        if existing.device.type != "cuda":
+            rows = rec = None
+            for s in range(steps):
+                if s:
+                    fill(s)
+                row, rec = run()
+                rows = row.new_empty((steps, *row.shape)) if rows is None else rows
+                rows[s] = row
+            return rows, rec
+
+        device = existing.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        key = (self.model.compute_dtype, num_points,
+               tuple((k, None if v is None else (tuple(v.shape), v.dtype))
+                     for k, v in static.items()))
+        if key not in self._rehearsed:
+            self._rehearse(run, device)
+            self._rehearsed.add(key)
+        graph, (row, out) = self._capture(run, device)
+        rows = torch.empty((steps, *row.shape), dtype=row.dtype, device=device)
+        counters = launch_counters()
+        for s in range(steps):
+            if s:
+                fill(s)
+            graph.replay()
+            for (owner, attr), n in zip(counters, self._per_replay):
+                if n:
+                    setattr(owner, attr, getattr(owner, attr) + n)
+            rows[s].copy_(row)
+        self.replays += steps
+        # the static output lives in the graph's memory, which goes with it
+        return rows, out.clone()
+
+    @property
+    def launches_per_replay(self) -> dict[str, int]:
+        """The kernels one replay launches, by wrapper (and counter) name."""
+        return {owner.__name__ + ("" if attr == "launches" else f".{attr}"): n
+                for (owner, attr), n in zip(launch_counters(), self._per_replay) if n}
+
+    @torch.no_grad()
+    def _rehearse(self, run: Callable, device: torch.device) -> None:
+        """Run the body once eagerly on the capture stream, then put back the
+        parameters and the optimizer's state (slots it created: zeros)."""
+        groups = self.optimizer.param_groups if self.optimizer is not None else []
+        params = [p for group in groups for p in group["params"]]
+        saved = [p.detach().clone() for p in params]
+        state = self.optimizer.state if self.optimizer is not None else {}
+        kept = {p: {k: v.clone() for k, v in state[p].items() if torch.is_tensor(v)}
+                for p in params if p in state}
+        current = torch.cuda.current_stream(device)
+        self._stream.wait_stream(current)
+        with torch.enable_grad(), torch.cuda.stream(self._stream):
+            run()
+        current.wait_stream(self._stream)
+        for p, v in zip(params, saved):
+            p.copy_(v)
+        for p in params:
+            for k, v in state.get(p, {}).items():
+                if k in kept.get(p, {}):
+                    v.copy_(kept[p][k])
+                elif torch.is_tensor(v):
+                    v.zero_()
+        self.rehearsals += 1
+
+    def _capture(self, run: Callable, device: torch.device):
+        """The body captured on the capture stream: (graph, its static outputs)."""
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(device)
+        failure, out = None, None
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        self._stream.wait_stream(current)
+        debug = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = run()
+                except Exception as exc:  # reported below, after the capture is closed
+                    failure = exc
+                finally:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError as exc:
+                        failure = failure or exc
+        finally:
+            torch.cuda.set_sync_debug_mode(debug)
+        current.wait_stream(self._stream)
+        after = _counts()
+        for (owner, attr), n in zip(launch_counters(), before):
+            setattr(owner, attr, n)  # recorded, not run
+        if failure is not None:
+            raise GraphCaptureError(f"capture of the {self.name} step failed at "
+                                    f"{_where(failure)}: {failure}") from failure
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.captures += 1
+        self._per_replay = [a - b for a, b in zip(after, before)]
+        return graph, out

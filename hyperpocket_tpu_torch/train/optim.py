@@ -19,7 +19,11 @@ each optimizer is the JAX package's optax chain:
   on store, the bias correction ``1 - b^count`` in fp32.
 
 Frozen hypernetwork heads are left out of the optimizer, as the reference
-leaves them out of its parameters.
+leaves them out of its parameters. Every optimizer here can be captured in
+a CUDA graph (``train/epoch_scan.py``): on a card torch's Adam and AdamW
+run with ``capturable=True``, the ones written here keep their count on the
+parameter's device and update their slots in place; the CPU's arithmetic
+is unchanged.
 
 ``make_lr_schedule`` returns ``lr_for_epoch(epoch)`` for 1-indexed epochs
 with torch's scheduler convention; ``set_learning_rate`` writes it into the
@@ -36,11 +40,20 @@ import torch
 from hyperpocket_tpu_torch.models.full_model import _DTYPES
 
 
+def step_count(p: torch.Tensor, value: float = 0.0) -> torch.Tensor:
+    """An optimizer's update count for ``p``: an fp32 scalar on its device,
+    where a captured step can increment it."""
+    return torch.full((), float(value), dtype=torch.float32, device=p.device)
+
+
 class OptaxAmsgrad(torch.optim.Optimizer):
     """AMSGrad as optax's ``scale_by_amsgrad``, with optional L2 decay.
 
     ``decoupled`` selects AdamW's decay (added to the update) over Adam's
-    (added to the gradient).
+    (added to the gradient). The count is a tensor on the parameter's
+    device and every slot is updated in place, so a CUDA graph can capture
+    the step; the bias correction ``1 - b^count`` is taken in fp64, as
+    Python's float power took it.
     """
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -62,12 +75,12 @@ class OptaxAmsgrad(torch.optim.Optimizer):
                     g = g + wd * p
                 state = self.state[p]
                 if not state:
-                    state["step"] = 0
+                    state["step"] = step_count(p)
                     state["mu"] = torch.zeros_like(p)
                     state["nu"] = torch.zeros_like(p)
                     state["nu_max"] = torch.zeros_like(p)
-                state["step"] += 1
-                t = state["step"]
+                state["step"].add_(1)
+                t = state["step"].double()
                 state["mu"].mul_(b1).add_((1 - b1) * g)
                 state["nu"].mul_(b2).add_((1 - b2) * g * g)
                 mu_hat = state["mu"] / (1 - b1 ** t)
@@ -87,7 +100,8 @@ class AdamLowp(torch.optim.Optimizer):
     store, and the update reads the stored (rounded) moments in fp32:
     ``(mu / bc1) / (sqrt(nu / bc2) + eps)`` with ``bc = 1 - b^step`` in
     fp32. ``decoupled`` selects AdamW's decay (added to the update) over
-    Adam's (added to the gradient).
+    Adam's (added to the gradient). As in ``OptaxAmsgrad`` the count lives
+    on the parameter's device and the moments are updated in place.
     """
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -112,18 +126,17 @@ class AdamLowp(torch.optim.Optimizer):
                     g = g + wd * p
                 state = self.state[p]
                 if not state:
-                    state["step"] = 0
+                    state["step"] = step_count(p)
                     state["mu"] = torch.zeros_like(p, dtype=md)
                     state["nu"] = torch.zeros_like(p, dtype=md)
-                state["step"] += 1
-                t = torch.tensor(float(state["step"]), dtype=f32)
-                mu = (b1 * state["mu"].to(g.dtype) + (1 - b1) * g).to(md)
-                nu = (b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g).to(md)
-                state["mu"], state["nu"] = mu, nu
-                bc1 = 1 - torch.tensor(b1, dtype=f32) ** t
-                bc2 = 1 - torch.tensor(b2, dtype=f32) ** t
-                update = (mu.to(f32) / bc1.to(mu.device)) / (
-                    torch.sqrt(nu.to(f32) / bc2.to(nu.device)) + group["eps"])
+                state["step"].add_(1)
+                t = state["step"]
+                mu = state["mu"].copy_(b1 * state["mu"].to(g.dtype) + (1 - b1) * g)
+                nu = state["nu"].copy_(b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g)
+                # fills, not copies from the host: the step stays capturable
+                bc1 = 1 - torch.full((), b1, dtype=f32, device=t.device) ** t
+                bc2 = 1 - torch.full((), b2, dtype=f32, device=t.device) ** t
+                update = (mu.to(f32) / bc1) / (torch.sqrt(nu.to(f32) / bc2) + group["eps"])
                 if wd and group["decoupled"]:
                     update = update + wd * p
                 p.add_((-group["lr"] * update).to(p.dtype))
@@ -189,9 +202,12 @@ def make_optimizer(opt_config: dict, params: Iterable[torch.nn.Parameter],
                             moment_dtype=_DTYPES[str(moment_dtype)])
         if amsgrad:
             return OptaxAmsgrad(params, lr, betas, eps, wd, decoupled=kind == "AdamW")
-        if kind == "Adam":
-            return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
-        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+        # on a card the count and the bias correction stay on the device, so
+        # that a CUDA graph can capture the step (train/epoch_scan.py); the
+        # step loop uses the same arithmetic
+        capturable = bool(params) and params[0].is_cuda
+        opt = torch.optim.Adam if kind == "Adam" else torch.optim.AdamW
+        return opt(params, lr=lr, betas=betas, eps=eps, weight_decay=wd, capturable=capturable)
     if kind == "SGD":
         return torch.optim.SGD(params, lr=lr, momentum=float(hp.pop("momentum", 0.0)),
                                weight_decay=float(hp.pop("weight_decay", 0.0)),

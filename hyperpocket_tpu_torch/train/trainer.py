@@ -33,10 +33,19 @@ tensor-parallel. Rank 0 alone writes logs, samples and checkpoints; the
 checkpoint holds the full tensors (``mesh.unsharded``), so it is the
 one-process file, and a restore re-shards it.
 
+``training.epoch_mode: "scan"`` (``make_train_epoch_scan``,
+``make_val_epoch_scan``; the machinery is ``train/epoch_scan.py``): the
+uniform batch prefix of each train epoch and of each val category runs as
+one stacked upload and, on a card, replays of one CUDA graph of the step,
+captured anew each epoch; ragged tail batches run the step function, and
+every step takes its own value of the step counter, so the trajectory is
+the step loop's. On the CPU the same epoch function runs the step eagerly.
+As in the JAX package, ``injection_provider`` runs the step loop, an epoch
+of fewer than two uniform batches is not scanned, and ``scan_invocations``
+and ``val_scan_invocations`` count the scanned epochs and categories.
+
 Not ported: the compile cache (``setup.compile_cache``) and
-``training.prng_impl``, which are not read, and the ``scan`` epoch mode,
-whose trajectory the JAX package holds equal to the step loop's: with
-``epoch_mode: "scan"`` the step loop runs, and ``scan_invocations`` stays 0.
+``training.prng_impl``, which are not read.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from hyperpocket_tpu_torch.parallel.mesh import (
 )
 from hyperpocket_tpu_torch.train import checkpoint as ckpt
 from hyperpocket_tpu_torch.train.config import get_results_dir_path
+from hyperpocket_tpu_torch.train.epoch_scan import EpochScan, upload_stacked
 from hyperpocket_tpu_torch.train.losses import kld_loss, reconstruction_loss
 from hyperpocket_tpu_torch.train.optim import (
     make_lr_schedule,
@@ -210,9 +220,10 @@ def make_fused_train_step(model: FullModel, optimizer: torch.optim.Optimizer, lo
 
 
 def make_val_step(model: FullModel, loss_coef: float, mesh: Mesh | None = None) -> Callable:
-    """Returns ``step(existing, missing, gt, generator, epoch, num_points) ->
-    (loss, rec)``: the inference forward and the reconstruction loss, with no
-    gradient.
+    """Returns ``step(existing, missing, gt, generator, epoch, num_points,
+    vae_eps=None, ball_points=None) -> (loss, rec)``: the inference forward
+    and the reconstruction loss, with no gradient. ``vae_eps`` and
+    ``ball_points`` (the global batch's) replace the two draws.
 
     With ``mesh`` the clouds are the global batch. When it divides over the
     data axis, each rank runs its rows, with its rows of the global draws,
@@ -222,14 +233,16 @@ def make_val_step(model: FullModel, loss_coef: float, mesh: Mesh | None = None) 
     """
 
     @torch.no_grad()
-    def step(existing, missing, gt, generator, epoch, num_points):
+    def step(existing, missing, gt, generator, epoch, num_points, vae_eps=None,
+             ball_points=None):
         batch = existing.shape[0]
         if mesh is None or batch % mesh.size(DATA_AXIS):
             rec = model.apply(existing, missing, generator, epoch,
-                              num_output_points=num_points, training=False)
+                              num_output_points=num_points, training=False, vae_eps=vae_eps,
+                              ball_points=ball_points)
             return reconstruction_loss(gt, rec, loss_coef), rec
-        vae_eps, balls = _local_draws(mesh, model, generator, batch, num_points, epoch, None,
-                                      None, existing.device)
+        vae_eps, balls = _local_draws(mesh, model, generator, batch, num_points, epoch,
+                                      vae_eps, ball_points, existing.device)
         rows = batch_rows(mesh, batch)
         rec = model.apply(existing[rows], None if missing is None else missing[rows],
                           generator, epoch, num_output_points=num_points, training=False,
@@ -238,6 +251,56 @@ def make_val_step(model: FullModel, loss_coef: float, mesh: Mesh | None = None) 
         return all_reduce_(loss, mesh.group(DATA_AXIS)), rec
 
     return step
+
+
+def make_train_epoch_scan(model: FullModel, optimizer: torch.optim.Optimizer,
+                          loss_coef: float, mesh: Mesh | None = None) -> EpochScan:
+    """The train step over an epoch's stacked batches (``epoch_mode: "scan"``).
+
+    Returns ``epoch_fn(existing, missing, gt, generators, epoch, num_points)
+    -> (losses (S, 3), rec)``: the clouds stacked (S, B, ...) on the device,
+    one seeded generator a step (the step loop's counter values), the
+    per-step (loss, loss_r, loss_kld) rows and the last step's
+    reconstruction. The body is ``make_train_step``'s step on the static
+    buffers with the step's draws given, so the trajectory is the step
+    loop's; on a card it is a CUDA graph captured each call and replayed a
+    step (``train/epoch_scan.py``). Under ``mesh`` each rank draws the
+    global batch, as the step does.
+    """
+    step = make_train_step(model, optimizer, loss_coef, mesh)
+
+    def body(existing, missing, gt, epoch, num_points, vae_eps, ball_points):
+        loss, loss_r, loss_k, rec = step(existing, missing, gt, None, epoch, num_points,
+                                         vae_eps=vae_eps, ball_points=ball_points)
+        return torch.stack([loss, loss_r, loss_k]), rec
+
+    return EpochScan(body, model=model, optimizer=optimizer, name="train",
+                     draw_rows=1 if mesh is None else mesh.size(DATA_AXIS))
+
+
+def make_val_epoch_scan(model: FullModel, loss_coef: float,
+                        mesh: Mesh | None = None) -> EpochScan:
+    """The val step over a category's stacked batches: ``epoch_fn(existing,
+    missing, gt, generators, epoch, num_points) -> (losses (S,), rec)``, as
+    ``make_train_epoch_scan`` with ``make_val_step``'s step as the body."""
+    step = make_val_step(model, loss_coef, mesh)
+
+    def body(existing, missing, gt, epoch, num_points, vae_eps, ball_points):
+        return step(existing, missing, gt, None, epoch, num_points, vae_eps=vae_eps,
+                    ball_points=ball_points)
+
+    return EpochScan(body, model=model, name="val")
+
+
+def _uniform_prefix(batches: list) -> int:
+    """How many batches from the first on have the first one's shapes."""
+    def shapes(b):
+        return tuple(None if a is None else a.shape for a in b)
+
+    lead, n = shapes(batches[0]), 0
+    while n < len(batches) and shapes(batches[n]) == lead:
+        n += 1
+    return n
 
 
 @dataclass
@@ -350,10 +413,18 @@ class Trainer:
         self.epoch_mode = str(tr.get("epoch_mode", "step"))
         if self.epoch_mode not in ("step", "scan"):
             raise ValueError(f"training.epoch_mode must be 'step' or 'scan', got {self.epoch_mode!r}")
-        if self.epoch_mode == "scan":
-            self.log.info("epoch_mode 'scan' runs the step loop in the port: the JAX package "
-                          "holds both loops to one trajectory")
+        scan = self.epoch_mode == "scan"
+        self._epoch_scan_fn = (make_train_epoch_scan(self.model, self.optimizer, self.loss_coef,
+                                                     self.mesh) if scan else None)
+        self._val_epoch_scan_fn = (make_val_epoch_scan(self.model, self.loss_coef, self.mesh)
+                                   if scan else None)
+        if scan:
+            self.log.info("epoch_mode 'scan': each epoch's uniform batch prefix runs %s",
+                          "as replays of a CUDA graph" if self.device.type == "cuda"
+                          else "stacked, the step eagerly on the CPU")
+        # the scanned train epochs and val categories (n_scan > 1) run so far
         self.scan_invocations = 0
+        self.val_scan_invocations = 0
 
         self.train_losses: list = []
         self.val_losses: list = []
@@ -420,17 +491,40 @@ class Trainer:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
-    def _batch(self, existing, missing, gt):
-        """One loader batch on the device; HyperRec and scalar placeholders drop missing."""
+    def _prep_missing(self, missing):
+        """HyperRec and scalar placeholders (Completion3D) drop missing."""
         if not self.uses_missing or not isinstance(missing, np.ndarray) or missing.ndim != 3:
-            missing = None
+            return None
+        return missing
+
+    def _batch(self, existing, missing, gt):
+        """One loader batch on the device."""
+        missing = self._prep_missing(missing)
         return (self._to_device(existing), None if missing is None else self._to_device(missing),
                 self._to_device(gt))
+
+    def _collect(self, loader, epoch: int) -> tuple[list, list]:
+        """A scanned epoch's batches (missing prepared) and their generators,
+        one counter value each, in the step loop's order."""
+        batches, generators = [], []
+        for existing, missing, gt, _ in loader.epoch(epoch):
+            batches.append((existing, self._prep_missing(missing), gt))
+            generators.append(self._next_generator())
+        return batches, generators
+
+    def _stacked(self, batches: list) -> tuple:
+        """Batches stacked (S, B, ...) on the device in one upload."""
+        use_missing = batches[0][1] is not None
+        cols = [0, 1, 2] if use_missing else [0, 2]
+        dev = upload_stacked([[b[i] for b in batches] for i in cols], self.device)
+        return dev[0], dev[1] if use_missing else None, dev[-1]
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> tuple[EpochStats, tuple | None]:
         """One epoch of train steps; the stats are the true means over its steps."""
         set_learning_rate(self.optimizer, self.lr_schedule(epoch))
+        if self._epoch_scan_fn is not None and self.injection_provider is None:
+            return self._train_epoch_scan(epoch)
         rows, latest = [], None
         for existing, missing, gt, _ in self.train_loader.epoch(epoch):
             ex, mi, g = self._batch(existing, missing, gt)
@@ -450,8 +544,38 @@ class Trainer:
             latest = (latest[0], latest[1], latest[2].float().cpu().numpy())
         return EpochStats(*(sums / max(len(rows), 1))), latest
 
+    def _train_epoch_scan(self, epoch: int) -> tuple[EpochStats, tuple | None]:
+        """The epoch's batches collected, the uniform prefix through one
+        scanned call, ragged tail batches through the step function, each
+        with its own counter value: the step loop's trajectory."""
+        batches, generators = self._collect(self.train_loader, epoch)
+        if not batches:
+            self.last_step_losses = np.zeros((0, 3))
+            return EpochStats(0.0, 0.0, 0.0), None
+        n_scan = _uniform_prefix(batches)
+        rows, rec, start = [], None, 0
+        if n_scan > 1:
+            losses, rec = self._epoch_scan_fn(*self._stacked(batches[:n_scan]),
+                                              generators[:n_scan], float(epoch),
+                                              int(batches[0][2].shape[1]))
+            self.scan_invocations += 1
+            rows.append(losses)
+            start = n_scan
+        for (existing, missing, gt), gen in zip(batches[start:], generators[start:]):
+            loss, loss_r, loss_k, rec = self.train_step(*self._batch(existing, missing, gt), gen,
+                                                        float(epoch), int(gt.shape[1]))
+            rows.append(torch.stack([loss, loss_r, loss_k])[None])
+        self.updates += len(batches)
+        # one device fetch per epoch, as in the step loop
+        self.last_step_losses = torch.cat(rows).cpu().numpy()
+        sums = self.last_step_losses.sum(axis=0)
+        latest = (batches[-1][0], batches[-1][2], rec.float().cpu().numpy())
+        return EpochStats(*(sums / len(batches))), latest
+
     def val_epoch(self, epoch: int):
         """Per-category no-grad loss and one sample per category (epoch_loops.py:49-83)."""
+        if self._val_epoch_scan_fn is not None:
+            return self._val_epoch_scan(epoch)
         val_losses: dict[str, np.ndarray] = {}
         val_samples: dict[str, tuple | None] = {}
         for cat, loader in self.val_loaders.items():
@@ -467,6 +591,37 @@ class Trainer:
                 last = (last[0], last[1], last[2][0].float().cpu().numpy())
             val_losses[cat] = np.array([total / max(len(losses), 1)])
             val_samples[cat] = last
+        total = sum(val_losses.values()) / len(val_losses) if val_losses else np.array([0.0])
+        val_losses["total"] = total
+        return val_losses, val_samples
+
+    def _val_epoch_scan(self, epoch: int):
+        """``val_epoch`` with each category's uniform prefix through one
+        scanned call and its ragged tail through the val step."""
+        val_losses: dict[str, np.ndarray] = {}
+        val_samples: dict[str, tuple | None] = {}
+        for cat, loader in self.val_loaders.items():
+            batches, generators = self._collect(loader, epoch)
+            if not batches:
+                val_losses[cat], val_samples[cat] = np.array([0.0]), None
+                continue
+            n_scan = _uniform_prefix(batches)
+            losses, rec, start = [], None, 0
+            if n_scan > 1:
+                scanned, rec = self._val_epoch_scan_fn(*self._stacked(batches[:n_scan]),
+                                                       generators[:n_scan], float(epoch),
+                                                       int(batches[0][2].shape[1]))
+                self.val_scan_invocations += 1
+                losses.append(scanned)
+                start = n_scan
+            for (existing, missing, gt), gen in zip(batches[start:], generators[start:]):
+                loss, rec = self.val_step(*self._batch(existing, missing, gt), gen, float(epoch),
+                                          int(gt.shape[1]))
+                losses.append(loss[None])
+            total = float(torch.cat(losses).sum())
+            val_losses[cat] = np.array([total / len(batches)])
+            val_samples[cat] = (batches[-1][0][0], batches[-1][2][0],
+                                rec[0].float().cpu().numpy())
         total = sum(val_losses.values()) / len(val_losses) if val_losses else np.array([0.0])
         val_losses["total"] = total
         return val_losses, val_samples

@@ -750,20 +750,25 @@ def test_a_served_request_launches_k10_once(cuda, dtype):
     assert decode_batch.launches == before and rec.shape == (4, 2048, 3)
 
 
+@pytest.mark.parametrize("channels", [(272,), (4100,), (8,) * 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_inference_with_widths_k10_cannot_take_raises(cuda, dtype):
-    """Widths the tensor-core kernel cannot hold no longer raise: the
-    inference forward of a model with a 272-channel target layer decodes
-    through K10 once (bf16 on the CUDA-core kernel), with the chain's
-    rounding, within K10's gates of the plain version on its own flat
-    weights."""
+def test_inference_with_widths_k10_cannot_take_raises(cuda, dtype, channels):
+    """No width raises. A 272-channel target layer, which the tensor-core
+    kernel cannot hold, decodes through K10 once (bf16 on the CUDA-core
+    kernel), with the chain's rounding, within K10's gates of the plain
+    version on its own flat weights. A decoder beyond K10's limits (a layer
+    of 4100 channels, 17 layers) takes the ``bmm`` chain, fixed when the
+    model is built: K10 launches no time and the output is the chain's."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
     from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_reference
 
     cfg = _settings("config_3depn_chair.json")["full_model"]
     cfg["compute_dtype"] = dtype
-    cfg["target_network"]["layer_out_channels"] = [272]
+    cfg["target_network"]["layer_out_channels"] = list(channels)
     model = FullModel.from_config(cfg, torch.Generator().manual_seed(6)).to(cuda)
+    beyond = channels != (272,)
+    assert model.decode_route == ("chain" if beyond else "k10")
     cd = model.compute_torch_dtype
     existing = _points(2, 1024, seed=15)
     noise = torch.randn((2, model.get_noise_size()), device=cuda,
@@ -775,11 +780,16 @@ def test_inference_with_widths_k10_cannot_take_raises(cuda, dtype):
                       noise=noise, ball_points=balls)
     torch.cuda.synchronize()
     assert (decode_batch.launches - before[0], decode_batch.launches_bf16_simt - before[1]) == (
-        1, int(dtype == "bfloat16"))
+        (0, 0) if beyond else (1, int(dtype == "bfloat16")))
     with torch.no_grad():
         latent, _, _ = model._get_latent(existing.to(cd), existing.to(cd), None, False,
                                          noise.to(cd), None)
-        want = decode_batch_reference(model.hyper_network(latent), balls.to(cd), [272], True,
+        flat = model.hyper_network(latent)
+        if beyond:
+            chain = batched_target_network_forward(flat, balls.to(cd), list(channels), True)
+            assert torch.equal(out, chain.float())
+            return
+        want = decode_batch_reference(flat, balls.to(cd), [272], True,
                                       round_product=True).float()
     assert out.shape == (2, 512, 3) and bool(torch.isfinite(out).all())
     if dtype == "bfloat16":
@@ -1179,3 +1189,167 @@ def test_sharded_pairs_and_dp_serving_on_one_rank(nccl_group):
     artifact = serving.load_completion(serving.export_completion(model, **kw))
     dp_artifact = serving.load_completion(serving.export_completion(model, data_parallel=1, **kw))
     assert torch.equal(dp_artifact(existing, noise, 5), artifact(existing, noise, 5))
+
+
+# ---------------------------------------------------------------------------
+# Scanned epochs (train/epoch_scan.py): the train and val steps as replays of
+# a CUDA graph, against the eager steps on the same draws, bit for bit under
+# deterministic algorithms (K2's index_add_ sums by atomics otherwise)
+
+SCAN_STEPS, SCAN_BATCH = 4, 8
+
+
+def _kernel_counts() -> dict:
+    from hyperpocket_tpu_torch.ops import launch_counters
+
+    return {f"{owner.__name__}.{attr}": getattr(owner, attr)
+            for owner, attr in launch_counters()}
+
+
+def _launched(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _kernel_counts().items() if n != before[k]}
+
+
+def _scan_vs_eager(dtype: str, train: bool, mesh=None, steps: int = SCAN_STEPS) -> dict:
+    """The chair model at full width in ``dtype``, one epoch of ``steps``
+    stacked batches of SCAN_BATCH through the epoch function and through the
+    eager step, from one model copy each: rows, last reconstruction,
+    parameters, launches, and the epoch function."""
+    import copy
+
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    config = _settings("config_3depn_chair.json")
+    config["full_model"]["compute_dtype"] = dtype
+    base = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(11)).to("cuda")
+    tr, coef = config["training"], float(config["training"]["loss_coef"])
+    data = [_points(steps * SCAN_BATCH, n, seed=s).view(steps, SCAN_BATCH, n, 3)
+            for n, s in ((1024, 50), (1024, 51), (2048, 52))]
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("eager", "scan"):
+            model = copy.deepcopy(base)
+            opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(model))
+            gens = [torch.Generator(device="cuda").manual_seed(60 + s) for s in range(steps)]
+            before = _kernel_counts()
+            fn = None
+            if mode == "scan":
+                fn = (trainer.make_train_epoch_scan(model, opt, coef, mesh) if train
+                      else trainer.make_val_epoch_scan(model, coef, mesh))
+                rows, rec = fn(*data, gens, 1.0, 2048)
+            else:
+                step = (trainer.make_train_step(model, opt, coef, mesh) if train
+                        else trainer.make_val_step(model, coef, mesh))
+                rows = []
+                for s in range(steps):
+                    *losses, rec = step(data[0][s], data[1][s], data[2][s], gens[s], 1.0, 2048)
+                    rows.append(torch.stack(losses) if train else losses[0])
+                rows = torch.stack(rows)
+            torch.cuda.synchronize()
+            out[mode] = {"rows": rows, "rec": rec, "launches": _launched(before), "fn": fn,
+                         "params": [p.detach().clone() for p in model.parameters()]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "bfloat16_k8"])
+def test_train_epoch_graph_equals_the_eager_loop(cuda, case, monkeypatch):
+    """Forward, backward and Adam (capturable) captured once and replayed a
+    step: the eager steps' losses, reconstruction and parameters bit for bit;
+    ``.launches`` counts each replay's kernels (K1 twice, K8 twice with
+    HPCD_TRUNK_FUSED_FWD=1) and the rehearsal's."""
+    if case.endswith("_k8"):
+        monkeypatch.setenv("HPCD_TRUNK_FUSED_FWD", "1")
+    res = _scan_vs_eager(case.removesuffix("_k8"), train=True)
+    eager, scan = res["eager"], res["scan"]
+    assert torch.equal(scan["rows"], eager["rows"]) and torch.equal(scan["rec"], eager["rec"])
+    assert all(torch.equal(p, q) for p, q in zip(scan["params"], eager["params"]))
+    fn = scan["fn"]
+    assert (fn.replays, fn.captures, fn.rehearsals) == (SCAN_STEPS, 1, 1)
+    per_step = {"nn_one_direction.launches": 2}
+    if case.endswith("_k8"):
+        per_step["trunk_pooled_argmax.launches"] = 2
+    assert eager["launches"] == {k: SCAN_STEPS * n for k, n in per_step.items()}
+    assert scan["launches"] == {k: (SCAN_STEPS + 1) * n for k, n in per_step.items()}
+    assert fn.launches_per_replay == {k.removesuffix(".launches"): n for k, n in per_step.items()}
+    assert fn.capture_ms > 0 and bool(torch.isfinite(scan["rows"]).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_val_epoch_graph_equals_the_eager_loop(cuda, dtype):
+    """The val step (K3, K10, and K4 twice in bf16) captured and replayed."""
+    res = _scan_vs_eager(dtype, train=False)
+    eager, scan = res["eager"], res["scan"]
+    assert torch.equal(scan["rows"], eager["rows"]) and torch.equal(scan["rec"], eager["rec"])
+    per_step = {"nn_min_fused.launches": 1, "decode_batch.launches": 1}
+    if dtype == "bfloat16":
+        per_step["trunk_pooled.launches"] = 2
+    assert eager["launches"] == {k: SCAN_STEPS * n for k, n in per_step.items()}
+    assert scan["launches"] == {k: (SCAN_STEPS + 1) * n for k, n in per_step.items()}
+    assert scan["fn"].replays == SCAN_STEPS
+
+
+def test_train_epoch_graph_on_a_one_rank_nccl_mesh(nccl_group):
+    """The step under a (1, 1) mesh: the NCCL all-reduce of the gradients and
+    of the losses is captured with it, and the replays give the eager mesh
+    steps' bits."""
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    res = _scan_vs_eager("float32", train=True, mesh=make_mesh(1, 1), steps=3)
+    eager, scan = res["eager"], res["scan"]
+    assert torch.equal(scan["rows"], eager["rows"])
+    assert all(torch.equal(p, q) for p, q in zip(scan["params"], eager["params"]))
+    assert scan["fn"].replays == 3
+
+
+def test_a_body_that_syncs_the_host_raises_naming_the_line(cuda):
+    """``.item()`` inside the captured body: GraphCaptureError naming that
+    line, the counts untouched, and the card still works after it."""
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.train.epoch_scan import EpochScan, GraphCaptureError
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    model = FullModel.from_config(cfg, torch.Generator().manual_seed(12))
+
+    def body(existing, missing, gt, epoch, num_points, vae_eps, ball_points):
+        total = existing.sum()
+        scale = total.item()  # a host sync
+        return (total * scale)[None], existing
+
+    fn = EpochScan(body, model=model)
+    data = [_points(2 * 4, n, seed=70).view(2, 4, n, 3) for n in (1024, 1024, 2048)]
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(2)]
+    before = _kernel_counts()
+    with pytest.raises(GraphCaptureError, match=r"scale = total\.item\(\)"):
+        fn(*data, gens, 1.0, 2048)
+    assert _launched(before) == {} and fn.replays == 0
+    assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+def test_k4_and_k8_replay_after_an_in_place_weight_update(layers):
+    """K4 and K8 encode their TMA maps at capture: with the weights and the
+    input updated in place, replays give the eager kernels' outputs on the
+    new values."""
+    from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
+
+    x = _cloud(4, 1024, seed=3)
+    trunk_pooled(layers, x), trunk_pooled_argmax(layers, x)  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pooled = trunk_pooled(layers, x)
+        pooled8, idx8 = trunk_pooled_argmax(layers, x)
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(pooled, trunk_pooled(layers, x))
+        want8, want_idx = trunk_pooled_argmax(layers, x)
+        assert torch.equal(pooled8, want8) and torch.equal(idx8, want_idx)
+        with torch.no_grad():
+            for w, b in layers:
+                w.mul_(-1.25)
+                b.add_(0.0625)
+            x.copy_(_cloud(4, 1024, seed=4 + step))

@@ -9,11 +9,15 @@ parity budget; the two sum the hidden layers in another order), bf16 within
 5% of the output's largest magnitude (tests/test_torch_models.py's budget;
 the route asks the op for the chain's rounding, the product rounded and
 then its sum with the bias, and tests/test_torch_rounding.py holds it at
-seeds 0-11). The training forward and fp64 and fp16 keep the chain.
+seeds 0-11). The training forward and fp64 and fp16 keep the chain, and so
+does a decoder K10 cannot take (more than 16 layers, or a layer wider than
+4096 channels): its route is fixed from the widths when the model is built.
 """
 
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -123,3 +127,36 @@ def test_fp64_and_fp16_inference_keep_the_chain(dtype, decode_calls):
     assert not port.fused_decode(False)
     assert out.dtype == (torch.float64 if dtype == "float64" else torch.float32)
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [(8,) * 16, (4100,)])  # 17 layers; 4100 channels
+def test_widths_beyond_k10_take_the_chain_like_jax(channels, dtype, decode_calls):
+    """17 layers of 8 channels, and one layer of 4100, at B=1 and a few
+    points: ``decode_route`` is "chain" from the build on, the op is never
+    called, and the forward is the JAX model's within the module's budgets."""
+    cfg = tiny_config(compute_dtype=dtype)
+    cfg["target_network"] = {**cfg["target_network"], "layer_out_channels": list(channels)}
+    jmodel, params, port = model_pair(cfg, seed=10)
+    assert port.decode_route == "chain" and not port.fused_decode(False)
+    rng = np.random.default_rng(10)
+    data = {"existing": rng.standard_normal((1, 32, 3)).astype(np.float32) * 0.3,
+            "missing": rng.standard_normal((1, 32, 3)).astype(np.float32) * 0.3,
+            "noise": rng.standard_normal((1, 16)).astype(np.float32) * 0.13,
+            "ball_points": rng.uniform(-0.5, 0.5, (1, 8, 3)).astype(np.float32)}
+    t = {k: torch.from_numpy(v) for k, v in data.items()}
+    got = port.apply(t["existing"], t["missing"], None, 100.0, num_output_points=8,
+                     training=False, noise=t["noise"], ball_points=t["ball_points"]).numpy()
+    want = np.asarray(jmodel.apply(
+        params, *(jnp.asarray(data[k]) for k in ("existing", "missing")), jax.random.key(1),
+        jnp.asarray(100.0), num_output_points=8, training=False,
+        noise=jnp.asarray(data["noise"]), ball_points=jnp.asarray(data["ball_points"])),
+        np.float32)
+    assert decode_calls == []
+    assert got.shape == (1, 8, 3) and np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+    assert decoder.takes_widths((8,) * 15) and decoder.takes_widths((4096,))  # 16 layers
+    assert not decoder.takes_widths(channels)

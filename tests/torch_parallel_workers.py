@@ -166,14 +166,17 @@ def train_steps(out_dir: str, cfg: dict, state_path: str, data_path: str, n_mode
 
 
 @task
-def trainer_run(out_dir: str, config: dict, tag: str, n_model: int) -> None:
+def trainer_run(out_dir: str, config: dict, tag: str, n_model: int,
+                epoch_mode: str = "step") -> None:
     """A Trainer with ``training.parallel = {data: null, model: n_model}``
-    runs its config's epochs (resuming from its results tree, if one holds a
-    checkpoint); rank 0 saves the losses and the seed counter."""
+    and ``epoch_mode`` runs its config's epochs (resuming from its results
+    tree, if one holds a checkpoint); rank 0 saves the losses, the seed
+    counter and the scanned epochs' counts."""
     from hyperpocket_tpu_torch.train import trainer
 
     config = json.loads(json.dumps(config))
     config["training"]["parallel"] = {"data": None, "model": n_model}
+    config["training"]["epoch_mode"] = epoch_mode
     t = trainer.Trainer(config, device="cpu")
     rows = []
     inner = t.train_epoch
@@ -189,6 +192,7 @@ def trainer_run(out_dir: str, config: dict, tag: str, n_model: int) -> None:
           rows=np.concatenate(rows) if rows else np.zeros((0, 3)),
           seed_counter=np.int64(t._seed_counter), start_epoch=np.int64(t.start_epoch),
           mesh=np.asarray([t.mesh.size("data"), t.mesh.size("model")]),
+          scan_counts=np.asarray([t.scan_invocations, t.val_scan_invocations]),
           writers=_gather_rows(torch.tensor([int(t.is_writer)])))
 
 
