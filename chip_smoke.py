@@ -29,14 +29,20 @@ Phases, each fatal on any error:
    (every bias drawn anew, distinct per channel, as trained weights have
    them; initialisation zeroes most of them), written as a JAX-layout checkpoint and served through
    ``serving.main(["infer", ...])`` (PLY in, PLY out), then three B=64
-   requests through ``make_serving_fn``. The trunk kernel and the decode
-   kernel K10 must launch once per request; equal seeds give equal outputs,
-   another seed another output; the bf16 output is held to the fp32 path
-   (K10's fp32 kernel, no K4) on the same weights and ball points (relative
-   L2 <= 0.1).
-5. serving throughput: bf16 and fp32 completion at B=256 in clouds/s: all
-   clouds over all the synchronised time of the timed windows, with each
-   window's rate beside it.
+   requests through ``make_serving_fn``. Both serve through CUDA graphs
+   (below): the trunk kernel and the decode kernel K10 launch 2 times in
+   infer's one request and 4 in the three requests, 6 in all; one capture
+   and three replays; the replays bit-equal to the eager ``FullModel.apply``
+   with the same seeds; equal seeds give equal outputs, another seed
+   another output; the bf16 output is held to the fp32 path (K10's fp32
+   kernel, no K4) on the same weights and ball points (relative L2 <= 0.1).
+5. serving throughput: bf16 and fp32 ``make_serving_fn`` at B=256 and B=64,
+   through its graphs and eagerly (``FullModel.apply``) in one process:
+   the first call's ms (warm-up, capture, replay), clouds/s in turns
+   (graph, eager, eager, graph; all clouds over all the synchronised time
+   of 5 windows of 10 calls, each window's rate beside it), device ms a
+   call (``torch.profiler``) and the busy share (device over wall), and
+   each graph's pool bytes and capture ms.
 6. NN kernels vs plain: K1 (``nn_one_direction``) and K3 (``nn_min_fused``,
    ``ops/nn.py``) against their plain versions at B=64 and B=60 with
    N=M=2048, ragged clouds (B=3, N=200, M=136), more keys than one staged
@@ -166,12 +172,16 @@ Phases, each fatal on any error:
    equal seeds equal, another seed another; the bf16 graph holds the op
    ``hyperpocket.trunk_pooled`` (fp32 does not) and both hold
    ``hyperpocket.decode_batch``; the export launches no K4 and no K10, each
-   bf16 artifact call one K4, each artifact call one K10. The artifact and ``make_serving_fn``
-   timed in clouds/s at B=64 and B=256 (nothing is claimed for them).
+   bf16 artifact call one K4, each artifact call one K10 (replays of the
+   captured program), the replays bit-equal to the loaded module called
+   directly. At B=64 and B=256 the artifact graphed and its module called
+   directly timed as in phase 5, beside ``make_serving_fn``'s clouds/s
+   (nothing is claimed for them).
 20. serving CLI: on the bf16 chair checkpoint and phase 14's 3D-EPN corpus,
    ``serving.main`` runs ``export`` (sidecar keys), ``infer --artifact``
-   (6 PLYs of 2048 finite points, K4 and K10 once), ``fit-prior`` (a finite
-   prior of the noise size) and ``infer --latent-prior`` (6 PLYs); a prior
+   (6 PLYs of 2048 finite points, K4 and K10 twice: one request, warm-up and
+   replay), ``fit-prior`` (a finite prior of the noise size) and ``infer
+   --latent-prior`` (6 PLYs, K4 and K10 twice); a prior
    of another dim is refused before any completion.
 21. HyperRec: ``settings/config_completion.json``'s model at full width,
    fp32 with TF32 off, B=66 partial and gt clouds of 2048 points: the first
@@ -197,8 +207,10 @@ Phases, each fatal on any error:
    ``pairwise_emd_cd_multi(mesh=)`` on one 512-pair dispatch (N=M=1024):
    every pair equal to the unsharded call's, K6 and K3 once. 25:
    ``make_serving_fn(mesh=)`` and a ``data_parallel=1`` artifact in bf16 at
-   B=256, bit-equal to ``make_serving_fn`` and to the plain artifact, in
-   clouds/s beside them. Phases 22-25 print their wall time.
+   B=256, each a graph that holds the all-gather, bit-equal to
+   ``make_serving_fn`` and to the plain artifact (K4 and K10 4 times in
+   their two first requests), in clouds/s beside them. Phases 22-25 print
+   their wall time.
 
 26. scanned epochs (``training.epoch_mode: "scan"``, ``train/epoch_scan.py``):
    ``Trainer`` in "scan" and in "step" mode on the full-width chair config
@@ -216,6 +228,14 @@ Phases, each fatal on any error:
    scan, step, step, scan), the capture's ms and each way's busy share over
    one epoch (``torch.profiler``; the scan's over its replays, and with its
    capture).
+
+Serving through CUDA graphs (phases 4, 5, 19, 20, 25 and the profile):
+every serving callable captures its forward once for each input signature
+and replays it (``utils/cuda_graph.py::GraphCache``). A signature's first
+call runs the forward once eagerly to warm up, captures it (the launches
+the capture records are taken back) and replays it, so each wrapper counts
+2 launches for that call and 1 for every later call: the launches the card
+ran.
 
 ``--profile PATH`` adds a phase that writes, for bf16 and fp32 serving at
 B=256 and B=64 (and the bf16 artifact of phase 19 at both), one fp32 and
@@ -755,6 +775,9 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
     launches = trunk_pooled.launches
     decodes = decode_batch.launches
     slice_s = time.perf_counter() - t0
+    check(len(f.graphs.graphs) == 1 and f.graphs.replays == 3,
+          f"3 requests of one signature: {len(f.graphs.graphs)} captures, "
+          f"{f.graphs.replays} replays")
 
     written = sorted(out_dir.glob("*.ply"))
     check(len(written) == 6, f"infer wrote {len(written)} PLYs, expected 6")
@@ -767,15 +790,23 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
         check(bool(torch.isfinite(out).all()), "non-finite serving output")
     check(torch.equal(outs[0], outs[1]), "the same seed gave different completions")
     check(not torch.equal(outs[0], outs[2]), "another seed gave the same completion")
-    check(infer_launches == 1, f"infer launched the trunk kernel {infer_launches} times, not 1")
-    check(launches == 4, f"4 requests launched the trunk kernel {launches} times")
-    check(infer_decodes == 1 and decodes == 4,
-          f"4 requests launched K10 {decodes} times ({infer_decodes} in infer)")
+    # each serving callable's first request of a signature runs the forward
+    # twice (its warm-up, then the replay), every later request once: infer
+    # (one request) 2, make_serving_fn's three requests 2 + 1 + 1
+    check(infer_launches == 2, f"infer launched the trunk kernel {infer_launches} times, not 2")
+    check(launches == 6, f"4 requests launched the trunk kernel {launches} times, not 6")
+    check(infer_decodes == 2 and decodes == 6,
+          f"4 requests launched K10 {decodes} times ({infer_decodes} in infer), not 6 (2)")
 
+    served = model.serving_params().to(device)
+    for out, seed in ((outs[0], 11), (outs[2], 12)):
+        eager = eager_serving(served, existing, noise, seed)
+        check(torch.equal(out, eager), f"seed {seed}: the replayed graph differs from the eager "
+              f"forward by {(out - eager).abs().max().item()!r}")
+    print("slice: make_serving_fn's replays bit-equal to the eager FullModel.apply (seeds 11, 12)")
     pts = generate_target_network_input_batch(
         model.target_network_input, torch.Generator(device=device).manual_seed(5), 1e9,
         SERVE_BATCH, N_OUT)
-    served = model.serving_params().to(device)
     got = served.apply(existing, None, None, 1e9, num_output_points=N_OUT, training=False,
                        noise=noise, ball_points=pts)
     want = plain_inference(model32.to(device), existing, noise, pts)
@@ -787,18 +818,68 @@ def drive_slice(config: dict, model, model32, device, tmp: Path) -> dict:
             "rel_l2": rel_l2, "slice_s": slice_s, "plys": len(written)}
 
 
+def eager_serving(served, existing, noise, seed: int) -> torch.Tensor:
+    """A serving request run eagerly: ``FullModel.apply`` drawing the ball
+    points from a generator seeded with the request's seed, as
+    ``make_serving_fn`` draws them."""
+    return served.apply(existing, None, torch.Generator(device=existing.device).manual_seed(seed),
+                        1e9, num_output_points=N_OUT, training=False, noise=noise)
+
+
+def both_ways(graphed, eager, batch: int) -> dict:
+    """A serving callable through its graphs and eagerly, in one process:
+    the graphed call's first call (warm-up, capture and replay, host ms to a
+    synchronize), then clouds/s in turns (graph, eager, eager, graph), device
+    ms a call (``torch.profiler``) and the busy share, device over wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed(0)
+    torch.cuda.synchronize()
+    out = {"first_call_ms": (time.perf_counter() - t0) * 1e3}
+    rates = {"graph": [], "eager": []}
+    for way in ("graph", "eager", "eager", "graph"):
+        rates[way].append(clouds_per_s(graphed if way == "graph" else eager, batch))
+    for way, fn in (("graph", graphed), ("eager", eager)):
+        cps = [r["clouds_per_s"] for r in rates[way]]
+        device = sum(_device_ms_by_kernel(fn, 5).values())
+        wall = 1e3 * batch / statistics.mean(cps)
+        out[way] = {"clouds_per_s": cps,
+                    "window_clouds_per_s": [w for r in rates[way] for w in r["window_clouds_per_s"]],
+                    "device_ms": device, "wall_ms": wall, "busy": device / wall}
+    return out
+
+
+def graph_stats(graphs) -> dict:
+    """A serving callable's captures: pool bytes, capture and first-call ms by batch."""
+    return {f"B{key[0][0][0]}": {"pool_bytes": g.pool_bytes, "capture_ms": g.capture_ms,
+                                 "warmup_capture_ms": graphs.first_call_ms[key]}
+            for key, g in graphs.graphs.items()}
+
+
 def throughput(model, model32, device) -> dict:
+    """Phase 5: make_serving_fn at B=256 and B=64 in bf16 and fp32, graphed
+    and eager (``FullModel.apply``), in one process."""
     from hyperpocket_tpu_torch import serving
 
     gen = torch.Generator(device=device).manual_seed(3)
-    existing = torch.randn((BENCH_BATCH, N_EXISTING, 3), generator=gen, device=device) * 0.3
-    noise = torch.randn((BENCH_BATCH, model.get_noise_size()), generator=gen, device=device) * 0.1
     out = {}
-    for name, m in (("bf16", model), ("fp32", model32)):
-        f = serving.make_serving_fn(m, num_output_points=N_OUT, device=device)
-        rate = clouds_per_s(lambda s: f(existing, noise, s), BENCH_BATCH)
-        out[f"{name}_clouds_per_s"] = rate["clouds_per_s"]
-        out[f"{name}_window_clouds_per_s"] = rate["window_clouds_per_s"]
+    for batch in (BENCH_BATCH, SERVE_BATCH):
+        existing = torch.randn((batch, N_EXISTING, 3), generator=gen, device=device) * 0.3
+        noise = torch.randn((batch, model.get_noise_size()), generator=gen, device=device) * 0.1
+        for name, m in (("bf16", model), ("fp32", model32)):
+            f = serving.make_serving_fn(m, num_output_points=N_OUT, device=device)
+            served = m.serving_params().to(device)
+            row = both_ways(lambda s: f(existing, noise, s),
+                            lambda s: eager_serving(served, existing, noise, s), batch)
+            row["graphs"] = graph_stats(f.graphs)
+            out[f"{name}_B{batch}"] = row
+            print(f"serving {name} B={batch}: clouds/s graph {row['graph']['clouds_per_s']!r} "
+                  f"eager {row['eager']['clouds_per_s']!r}; device ms graph "
+                  f"{row['graph']['device_ms']!r} eager {row['eager']['device_ms']!r}; busy "
+                  f"graph {row['graph']['busy']!r} eager {row['eager']['busy']!r}; first call "
+                  f"{row['first_call_ms']!r} ms; {json.dumps(row['graphs'])}")
+            del f, served
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2018,10 +2099,12 @@ def _graph_ops(data: bytes) -> set:
 
 def drive_export(model, model32, device, tmp: Path) -> dict:
     """Phase 19: the served chair model exported on the card in bf16 and fp32,
-    saved, loaded back and held to ``make_serving_fn``; both timed at B=64
-    and B=256."""
+    saved, loaded back and held to ``make_serving_fn``; the artifact graphed
+    and its loaded module called directly, and ``make_serving_fn``, timed at
+    B=64 and B=256."""
     from hyperpocket_tpu_torch import serving
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
 
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
@@ -2046,6 +2129,19 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
                   f"{name}: the export launched K4 or K10")
             direct = serving.make_serving_fn(m, num_output_points=N_OUT, device=device)
             row = {"export_s": export_s, "load_s": load_s, "bytes": len(data)}
+            program = torch.export.load(io.BytesIO(data)).module()
+
+            def eager(seed, program=program, meta=f.meta, existing=existing, noise=noise):
+                """The loaded module called directly on the ball points of ``seed``."""
+                balls = generate_target_network_input_batch(
+                    meta["target_network_input"], torch.Generator(device=device).manual_seed(seed),
+                    meta["epoch"], meta["batch"], meta["num_output_points"],
+                    method=meta["ball_method"])
+                with torch.no_grad():
+                    return program(existing, noise, balls)
+
+            row.update(both_ways(lambda s, f=f: f(existing, noise, s), eager, batch))
+            row["graphs"] = graph_stats(f.graphs)
             if batch == SERVE_BATCH:
                 graph = _graph_ops(data)
                 has_op = "hyperpocket.trunk_pooled.default" in graph
@@ -2054,7 +2150,8 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
                 check("hyperpocket.decode_batch.default" in graph,
                       f"{name}: no hyperpocket.decode_batch in the exported graph")
                 want = direct(existing, noise, 31)
-                # the artifact's path: three requests
+                # the artifact's path: three requests, replays of the graph that
+                # both_ways captured above
                 trunk_pooled.launches = decode_batch.launches = 0
                 got = [f(existing, noise, seed) for seed in (31, 31, 32)]
                 torch.cuda.synchronize()
@@ -2062,6 +2159,8 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
                 check(launches == (3 if name == "bf16" else 0),
                       f"{name}: 3 artifact calls launched K4 {launches} times")
                 check(decodes == 3, f"{name}: 3 artifact calls launched K10 {decodes} times")
+                check(torch.equal(got[0], eager(31)) and torch.equal(got[2], eager(32)),
+                      f"{name}: the artifact's replays differ from its module called directly")
                 check(got[0].shape == (batch, N_OUT, 3) and got[0].dtype == torch.float32
                       and bool(torch.isfinite(got[0]).all()), f"{name}: artifact output")
                 check(torch.equal(got[0], got[1]) and not torch.equal(got[0], got[2]),
@@ -2069,17 +2168,23 @@ def drive_export(model, model32, device, tmp: Path) -> dict:
                 err = ((got[0] - want).abs().max() / want.abs().max()).item()
                 print(f"export {name}: artifact vs make_serving_fn, max |diff| / max |out| "
                       f"{err!r} (limit {tol}); graph holds hyperpocket.trunk_pooled: {has_op}; "
-                      f"K4 / K10 launches in 3 artifact calls: {launches} / {decodes}")
+                      f"K4 / K10 launches in 3 artifact calls: {launches} / {decodes}; "
+                      f"replays bit-equal to the module called directly")
                 check(err <= tol, f"{name}: artifact vs make_serving_fn {err} > {tol}")
                 row.update(max_rel_err=err, launches=launches, decode_launches=decodes,
                            has_trunk_op=has_op)
-            for tag, fn in (("artifact", f), ("serving_fn", direct)):
-                rate = clouds_per_s(lambda s, fn=fn: fn(existing, noise, s), batch)
-                row[f"{tag}_clouds_per_s"] = rate["clouds_per_s"]
-                row[f"{tag}_window_clouds_per_s"] = rate["window_clouds_per_s"]
+            rate = clouds_per_s(lambda s: direct(existing, noise, s), batch)
+            row["serving_fn_clouds_per_s"] = rate["clouds_per_s"]
+            row["serving_fn_window_clouds_per_s"] = rate["window_clouds_per_s"]
+            print(f"artifact {name} B={batch}: clouds/s graph {row['graph']['clouds_per_s']!r} "
+                  f"module called directly {row['eager']['clouds_per_s']!r} make_serving_fn "
+                  f"{rate['clouds_per_s']!r}; device ms graph {row['graph']['device_ms']!r} "
+                  f"eager {row['eager']['device_ms']!r}; busy graph {row['graph']['busy']!r} "
+                  f"eager {row['eager']['busy']!r}; first call {row['first_call_ms']!r} ms; "
+                  f"{json.dumps(row['graphs'])}")
             res[f"B{batch}"] = row
             path.unlink()
-            del f, direct, data
+            del f, direct, data, program, eager
             torch.cuda.empty_cache()
         out[name] = res
     return out
@@ -2117,7 +2222,9 @@ def drive_serving_cli(model, device, tmp: Path) -> dict:
     out = {}
 
     def run(name, argv, want_launches):
-        """K4 and K10 must each launch ``want_launches`` times."""
+        """K4 and K10 must each launch ``want_launches`` times: an ``infer``
+        of one batch loads its artifact and serves one request, the first of
+        its signature, so 2 (the warm-up and the replay)."""
         trunk_pooled.launches = decode_batch.launches = 0
         t0 = time.perf_counter()
         rc = serving.main(argv)
@@ -2143,7 +2250,7 @@ def drive_serving_cli(model, device, tmp: Path) -> dict:
           and meta["noise_size"] == zdim and meta["compute_dtype"] == "bfloat16",
           f"export sidecar {meta}")
     run("infer_artifact", ["infer", "--artifact", art, "--inputs", *plys, "--out-dir",
-                           str(tmp / "out"), "--samples", "2", "--noise-std", "0.13"], 1)
+                           str(tmp / "out"), "--samples", "2", "--noise-std", "0.13"], 2)
     out["infer_artifact"]["plys"] = completions(tmp / "out")
     check(out["infer_artifact"]["plys"] == 6, f"infer wrote {out['infer_artifact']['plys']}")
     run("fit_prior", ["fit-prior", "-c", str(cfg_path), "--out", prior, "--max-items", "128",
@@ -2153,7 +2260,7 @@ def drive_serving_cli(model, device, tmp: Path) -> dict:
           and bool(np.isfinite(lg.scale_tril).all()), f"prior of dim {lg.dim}")
     run("infer_latent_prior", ["infer", "--artifact", art, "--inputs", *plys, "--out-dir",
                                str(tmp / "prior_out"), "--samples", "2", "--latent-prior",
-                               prior], 1)
+                               prior], 2)
     out["infer_latent_prior"]["plys"] = completions(tmp / "prior_out")
     check(out["infer_latent_prior"]["plys"] == 6, "infer --latent-prior wrote no 6 PLYs")
     bad = str(tmp / "bad_prior.npz")
@@ -2503,7 +2610,9 @@ def drive_dp_serving(model, device, tmp: Path) -> dict:
     """Phase 25: data-parallel ``make_serving_fn`` and a ``data_parallel=1``
     artifact in bf16 at B=256: the DP function bit-equal to ``make_serving_fn``,
     the DP artifact to the plain artifact (and within phase 19's gate of
-    ``make_serving_fn``); K4 and K10 once a request; clouds/s of each."""
+    ``make_serving_fn``); K4 and K10 twice in each callable's first request
+    (the warm-up and the replay of its graph, which holds the all-gather);
+    clouds/s of each."""
     from hyperpocket_tpu_torch import serving
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
@@ -2532,8 +2641,11 @@ def drive_dp_serving(model, device, tmp: Path) -> dict:
         got_artifact = dp_artifact(existing, noise, 41)
         torch.cuda.synchronize()
         launches = _counts(kernels)
-        check(launches == {"trunk_pool": 2, "decode_batch": 2},
+        # two first requests of their signatures: warm-up and replay each
+        check(launches == {"trunk_pool": 4, "decode_batch": 4},
               f"dp serving: two requests launched {launches}")
+        check(dp.graphs.replays == dp_artifact.graphs.replays == 1,
+              f"dp serving: {dp.graphs.replays} / {dp_artifact.graphs.replays} replays")
         check(torch.equal(got, want), "DP make_serving_fn differs from make_serving_fn")
         check(torch.equal(got_artifact, want_artifact), "DP artifact differs from the artifact")
         err = ((got_artifact - want).abs().max() / want.abs().max()).item()
@@ -2922,7 +3034,7 @@ def main(argv=None) -> int:
         sl = drive_slice(config, model, model32, device, Path(tmp))
     print(f"slice: {json.dumps(sl)}")
     tp = throughput(model, model32, device)
-    print(f"throughput B={BENCH_BATCH}: {json.dumps(tp)} on {card}")
+    print(f"throughput: {json.dumps(tp)} on {card}")
     nn_kern = nn_kernels_vs_plain(device)
     cham = chamfer_vs_plain(device)
     print(f"chamfer: {json.dumps(cham)}")

@@ -112,13 +112,17 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along ``dim`` in rank order."""
+    """The group's tensors concatenated along ``dim`` in rank order.
+
+    One collective into one tensor, which a CUDA graph captures (the
+    data-parallel serving forward, ``serving.py``)."""
     if group is None:
         return t
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    world = dist.get_world_size(group)
+    out = t.new_empty((world * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out if dim == 0 else torch.cat(out.chunk(world), dim=dim)
 
 
 class _CopyToGroup(torch.autograd.Function):

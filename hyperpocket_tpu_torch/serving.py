@@ -25,6 +25,24 @@ config or checkpoints. The exporting device is the serving device: the
 route through K4 and every tensor's device are fixed at export, and an
 artifact exported on ``cuda`` refuses to load where CUDA is absent.
 
+On a CUDA device each serving callable, from ``make_serving_fn`` or
+``load_completion``, captures its forward once for each input signature
+(batch, ``n_existing``, ``num_output_points``, compute dtype, device) into
+a CUDA graph and replays it at every later call
+(``utils/cuda_graph.py::GraphCache``), as ``jax.jit`` compiles once per
+shape; the artifact's program has one signature. The ball draw is
+captured with the forward, from a generator of the callable's own that each
+call seeds with its seed (the draw ``FullModel.apply`` makes when noise is
+given, so the bits are the eager forward's); a call copies its inputs into
+the graph's static buffers, replays once and returns a clone of the output. The
+first call of a signature also runs the forward once eagerly to warm up,
+so the wrappers' launch counts read two launches of each kernel there and
+one at every later call. A capture that fails raises ``GraphCaptureError``
+naming the line; nothing serves eagerly on a card. The serving net owns
+its weights (a snapshot, in fp32 too), so that the caller may update or
+free its model after ``make_serving_fn``. On the CPU the forward runs
+eagerly.
+
 Data-parallel serving runs one process per card (``parallel/``): every
 rank takes the global batch, draws the global ball points from the seed,
 serves its rows and all-gathers the output, so the result is the
@@ -83,6 +101,7 @@ from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_bat
 from hyperpocket_tpu_torch.parallel import distributed
 from hyperpocket_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_gather_cat, batch_rows
 from hyperpocket_tpu_torch.train.checkpoint import restore_trained_model
+from hyperpocket_tpu_torch.utils.cuda_graph import GraphCache
 
 ARTIFACT_SUFFIX = ".pt2"
 META_FILE = "hyperpocket_serving.json"  # the sampling settings inside the .pt2
@@ -96,14 +115,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def _serving_net(model: FullModel, params_or_module, device: torch.device) -> FullModel:
-    if params_or_module is None:
-        net = model
-    elif isinstance(params_or_module, FullModel):
-        net = params_or_module
-    else:
+    """The weights cast once to the compute dtype on ``device``, in a module
+    of their own: a captured graph reads them at fixed addresses, as
+    ``jax.jit`` closes over the parameters it was given."""
+    if isinstance(params_or_module, Mapping):
         net = copy.deepcopy(model)
         net.load_state_dict(params_or_module)
-    return net.serving_params().to(device)
+        return net.serving_params().to(device)
+    source = model if params_or_module is None else params_or_module
+    net = source.serving_params()
+    return (copy.deepcopy(net) if net is source else net).to(device)
 
 
 def _data_parallel(mesh: Mesh, serve, existing, noise, balls) -> torch.Tensor:
@@ -113,6 +134,32 @@ def _data_parallel(mesh: Mesh, serve, existing, noise, balls) -> torch.Tensor:
                           mesh.group(DATA_AXIS))
 
 
+def _completion(forward, draw, device: torch.device, mesh: Mesh | None, name: str,
+                static: tuple):
+    """``f(existing, noise, seed)``: ``forward(existing, noise, balls)``
+    without autograd, the ball points ``draw(generator, batch)`` from a
+    generator seeded with ``seed`` (under ``mesh`` this rank's rows,
+    gathered); on a card one CUDA graph per signature, the draw in it."""
+    generator = torch.Generator(device=device)
+
+    def run(existing, noise):
+        with torch.no_grad():
+            balls = draw(generator, existing.shape[0])
+            if mesh is None:
+                return forward(existing, noise, balls)
+            return _data_parallel(mesh, forward, existing, noise, balls)
+
+    graphs = GraphCache(run, device, name=name, static=static, generator=generator)
+
+    def completion(existing, noise, seed: int) -> torch.Tensor:
+        existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
+        return graphs(existing, noise, seed=seed)
+
+    completion.graphs = graphs
+    return completion
+
+
 def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | None = None, *,
                     num_output_points: int = 2048, epoch: float = 1e9,
                     device: str | torch.device = "cuda", mesh: Mesh | None = None):
@@ -120,9 +167,11 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
 
     ``params_or_module``: a ``FullModel`` holding the weights, a state_dict
     to load into a copy of ``model``, or None for ``model``'s own weights.
-    They are cast once to the compute dtype (``serving_params``) and moved
-    to ``device``. ``epoch`` feeds the progressive ball normalisation; past
-    the schedule (the default) every ball point lies on the unit sphere.
+    They are copied, cast once to the compute dtype (``serving_params``) and
+    moved to ``device``. ``epoch`` feeds the progressive ball normalisation;
+    past the schedule (the default) every ball point lies on the unit sphere.
+    On a card each input signature is captured once and replayed
+    (``f.graphs``, a ``GraphCache``).
 
     With ``mesh`` (``parallel.make_mesh``) every rank calls ``f`` with the
     global batch: it serves its rows of the data axis, with its rows of the
@@ -134,22 +183,13 @@ def make_serving_fn(model: FullModel, params_or_module: FullModel | Mapping | No
         device = distributed.rank_device(device)
     net = _serving_net(model, params_or_module, device)
     epoch = float(epoch)
-
-    def completion(existing, noise, seed: int) -> torch.Tensor:
-        generator = torch.Generator(device=device).manual_seed(int(seed))
-        existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
-        if mesh is None:
-            return net.apply(existing, None, generator, epoch,
-                             num_output_points=num_output_points, training=False, noise=noise)
-        balls = generate_target_network_input_batch(
-            net.target_network_input, generator, epoch, existing.shape[0], num_output_points,
-            method=net.ball_method)
-        return _data_parallel(mesh, lambda e, n, b: net.apply(
-            e, None, None, epoch, num_output_points=num_output_points, training=False,
-            noise=n, ball_points=b), existing, noise, balls)
-
-    return completion
+    return _completion(
+        lambda e, n, b: net.apply(e, None, None, epoch, num_output_points=num_output_points,
+                                  training=False, noise=n, ball_points=b),
+        lambda generator, batch: generate_target_network_input_batch(
+            net.target_network_input, generator, epoch, batch, num_output_points,
+            method=net.ball_method),
+        device, mesh, "the serving forward", (net.compute_dtype, num_output_points))
 
 
 class _CompletionProgram(nn.Module):
@@ -231,7 +271,8 @@ def load_completion(data: bytes):
     An artifact exported with ``data_parallel=N`` needs a world of N ranks
     (one process and no group for N = 1). Under a process group every rank
     calls the callable with the global batch and gets the global output:
-    it serves its rows and the ranks all-gather.
+    it serves its rows and the ranks all-gather. On a card the program is
+    captured once, at its one signature, and replayed (``f.graphs``).
     """
     meta = artifact_meta(data)
     dp = meta.get("data_parallel")
@@ -249,19 +290,11 @@ def load_completion(data: bytes):
     program = torch.export.load(io.BytesIO(data)).module()
     if mesh is not None:
         program.to(device)  # the weights as exported sit on the exporting card
-
-    def completion(existing, noise, seed: int) -> torch.Tensor:
-        generator = torch.Generator(device=device).manual_seed(int(seed))
-        balls = generate_target_network_input_batch(
-            meta["target_network_input"], generator, meta["epoch"], meta["batch"],
-            meta["num_output_points"], method=meta["ball_method"])
-        existing = torch.as_tensor(existing, dtype=torch.float32, device=device)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
-        with torch.no_grad():
-            if mesh is None:
-                return program(existing, noise, balls)
-            return _data_parallel(mesh, program, existing, noise, balls)
-
+    completion = _completion(
+        program, lambda generator, batch: generate_target_network_input_batch(
+            meta["target_network_input"], generator, meta["epoch"], batch,
+            meta["num_output_points"], method=meta["ball_method"]),
+        device, mesh, "the artifact's program", (meta["compute_dtype"],))
     completion.meta = meta
     return completion
 

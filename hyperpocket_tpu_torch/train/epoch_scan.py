@@ -31,38 +31,33 @@ buffers.
   Trainer has set the epoch's rate.
 * Warm-up: cuBLAS, NCCL and the optimizer make their state at first use,
   which a capture must not record. The first capture of each dtype and set
-  of shapes rehearses the body eagerly first, on the capture's stream, then
-  puts back the parameters and the optimizer's state; slots the rehearsal
-  created are zeroed, which is each optimizer's state before its first
-  update (``train/optim.py``; SGD's momentum from zero equals its
-  first-step copy of the gradient). ``rehearsals`` counts them; their
-  launches ran on the card and stay counted.
-* Launch counts: a wrapper counts one launch when the capture records it
-  (``ops.launch_counters``). The capture's counts are taken back and added
-  again at every replay, so each ``.launches`` is the number of launches
-  the card ran; ``launches_per_replay`` holds them.
-* Failure: the capture runs under ``torch.cuda.set_sync_debug_mode("error")``.
-  An operation that syncs the host, or any other error of the capture,
+  of shapes rehearses the body eagerly first, on the capture's stream
+  (``utils/cuda_graph.py::warm_up``), then puts back the parameters and the
+  optimizer's state; slots the rehearsal created are zeroed, which is each
+  optimizer's state before its first update (``train/optim.py``; SGD's
+  momentum from zero equals its first-step copy of the gradient).
+  ``rehearsals`` counts them; their launches ran on the card and stay
+  counted.
+* Capture, launch counts and failure are ``utils/cuda_graph.py``'s: each
+  ``.launches`` counts the launches the card ran, replays included
+  (``launches_per_replay`` holds a replay's), and a capture that fails
   raises ``GraphCaptureError`` naming the line of the body where it arose.
   Nothing falls back to the step loop.
 """
 
 from __future__ import annotations
 
-import time
-import traceback
 from typing import Callable
 
 import numpy as np
 import torch
 
 from hyperpocket_tpu_torch.ops import launch_counters
+from hyperpocket_tpu_torch.utils.cuda_graph import GraphCaptureError, capture, warm_up
+
+__all__ = ["EpochScan", "GraphCaptureError", "upload_stacked"]
 
 _ALIGN = 64  # bytes between the stacked arrays in the upload buffer
-
-
-class GraphCaptureError(RuntimeError):
-    """The step body could not be captured as a CUDA graph."""
 
 
 def upload_stacked(parts: list[list[np.ndarray]], device: torch.device) -> list[torch.Tensor]:
@@ -85,18 +80,6 @@ def upload_stacked(parts: list[list[np.ndarray]], device: torch.device) -> list[
     dev = host.to(device, non_blocking=True)
     return [dev[off:off + n].view(torch.from_numpy(np.empty(0, dt)).dtype).view(shape)
             for shape, dt, off, n in zip(shapes, dtypes, offsets, sizes)]
-
-
-def _counts() -> list[int]:
-    return [getattr(owner, attr) for owner, attr in launch_counters()]
-
-
-def _where(exc: BaseException) -> str:
-    """The innermost frame of ``exc`` outside torch: the line that failed."""
-    frames = traceback.extract_tb(exc.__traceback__)
-    own = [f for f in frames if "/torch/" not in f.filename.replace("\\", "/")]
-    f = (own or frames)[-1]
-    return f"{f.filename}:{f.lineno} ({f.line})"
 
 
 class EpochScan:
@@ -170,16 +153,16 @@ class EpochScan:
         if key not in self._rehearsed:
             self._rehearse(run, device)
             self._rehearsed.add(key)
-        graph, (row, out) = self._capture(run, device)
+        graph = capture(run, self._stream, device, f"the {self.name} step")
+        self.capture_ms = graph.capture_ms
+        self.captures += 1
+        self._per_replay = graph.per_replay
+        row, out = graph.out
         rows = torch.empty((steps, *row.shape), dtype=row.dtype, device=device)
-        counters = launch_counters()
         for s in range(steps):
             if s:
                 fill(s)
             graph.replay()
-            for (owner, attr), n in zip(counters, self._per_replay):
-                if n:
-                    setattr(owner, attr, getattr(owner, attr) + n)
             rows[s].copy_(row)
         self.replays += steps
         # the static output lives in the graph's memory, which goes with it
@@ -201,11 +184,8 @@ class EpochScan:
         state = self.optimizer.state if self.optimizer is not None else {}
         kept = {p: {k: v.clone() for k, v in state[p].items() if torch.is_tensor(v)}
                 for p in params if p in state}
-        current = torch.cuda.current_stream(device)
-        self._stream.wait_stream(current)
-        with torch.enable_grad(), torch.cuda.stream(self._stream):
-            run()
-        current.wait_stream(self._stream)
+        with torch.enable_grad():
+            warm_up(run, self._stream, device)
         for p, v in zip(params, saved):
             p.copy_(v)
         for p in params:
@@ -215,40 +195,3 @@ class EpochScan:
                 elif torch.is_tensor(v):
                     v.zero_()
         self.rehearsals += 1
-
-    def _capture(self, run: Callable, device: torch.device):
-        """The body captured on the capture stream: (graph, its static outputs)."""
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(device)
-        failure, out = None, None
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        self._stream.wait_stream(current)
-        debug = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(self._stream):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = run()
-                except Exception as exc:  # reported below, after the capture is closed
-                    failure = exc
-                finally:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError as exc:
-                        failure = failure or exc
-        finally:
-            torch.cuda.set_sync_debug_mode(debug)
-        current.wait_stream(self._stream)
-        after = _counts()
-        for (owner, attr), n in zip(launch_counters(), before):
-            setattr(owner, attr, n)  # recorded, not run
-        if failure is not None:
-            raise GraphCaptureError(f"capture of the {self.name} step failed at "
-                                    f"{_where(failure)}: {failure}") from failure
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.captures += 1
-        self._per_replay = [a - b for a, b in zip(after, before)]
-        return graph, out

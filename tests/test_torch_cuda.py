@@ -724,7 +724,9 @@ def test_decode_op_opcheck_on_cuda(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_a_served_request_launches_k10_once(cuda, dtype):
     """The chair model at full width: a ``make_serving_fn`` request decodes
-    through K10 once (and runs K4 once in bf16); a train step launches no K10."""
+    through K10 once (and runs K4 once in bf16), as one replay of its graph;
+    the first request of a signature also runs the forward once eagerly, its
+    warm-up, so it counts each kernel twice. A train step launches no K10."""
     from hyperpocket_tpu_torch import serving
     from hyperpocket_tpu_torch.models.full_model import FullModel
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
@@ -736,12 +738,14 @@ def test_a_served_request_launches_k10_once(cuda, dtype):
     existing = _points(4, 1024, seed=13)
     noise = torch.randn((4, model.get_noise_size()), device=cuda,
                         generator=torch.Generator(device=cuda).manual_seed(14)) * 0.13
-    before = (decode_batch.launches, trunk_pooled.launches)
-    out = f(existing, noise, 3)
-    torch.cuda.synchronize()
-    assert (decode_batch.launches - before[0], trunk_pooled.launches - before[1]) == (
-        1, 1 if dtype == "bfloat16" else 0)
-    assert out.shape == (4, 2048, 3) and bool(torch.isfinite(out).all())
+    k4 = 1 if dtype == "bfloat16" else 0
+    for seed, runs in ((3, 2), (4, 1)):  # warm-up and replay, then a replay
+        before = (decode_batch.launches, trunk_pooled.launches)
+        out = f(existing, noise, seed)
+        torch.cuda.synchronize()
+        assert (decode_batch.launches - before[0], trunk_pooled.launches - before[1]) == (
+            runs, runs * k4)
+        assert out.shape == (4, 2048, 3) and bool(torch.isfinite(out).all())
     model = model.to(cuda)
     before = decode_batch.launches
     rec, _, _ = model.apply(existing, existing, torch.Generator(device=cuda).manual_seed(1),
@@ -1024,7 +1028,8 @@ def test_exported_artifact_serves_on_the_card(cuda, dtype):
     """The chair model at full width exported on the card: the artifact's
     completion is make_serving_fn's for the same seed (fp32 within 1e-5 of
     the output's scale, bf16 within 2e-2: K4's bound), and the bf16 program
-    holds the op and launches K4 once a call."""
+    holds the op and launches K4 once a call (a replay), plus once in the
+    first call's warm-up."""
     import io
 
     from hyperpocket_tpu_torch import serving
@@ -1052,8 +1057,8 @@ def test_exported_artifact_serves_on_the_card(cuda, dtype):
     got = f(existing, noise, 21)
     again = f(existing, noise, 21)
     torch.cuda.synchronize()
-    assert trunk_pooled.launches == before[0] + (2 if dtype == "bfloat16" else 0)
-    assert decode_batch.launches == before[1] + 2
+    assert trunk_pooled.launches == before[0] + (3 if dtype == "bfloat16" else 0)
+    assert decode_batch.launches == before[1] + 3
     assert got.shape == (batch, n_out, 3) and got.dtype == torch.float32 and got.is_cuda
     assert torch.equal(got, again)
     tol = 1e-5 if dtype == "float32" else BF16_ATOL
@@ -1353,3 +1358,222 @@ def test_k4_and_k8_replay_after_an_in_place_weight_update(layers):
                 w.mul_(-1.25)
                 b.add_(0.0625)
             x.copy_(_cloud(4, 1024, seed=4 + step))
+
+
+# ---------------------------------------------------------------------------
+# Serving graphs (serving.py through utils/cuda_graph.py::GraphCache): the
+# forward captured once per input signature and replayed, against the eager
+# forward on the same seed bit for bit. A signature's first call warms up
+# (one eager forward, counted) and replays; every later call replays once.
+
+
+def _chair(dtype: str, seed: int):
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    cfg["compute_dtype"] = dtype
+    return FullModel.from_config(cfg, torch.Generator().manual_seed(seed))
+
+
+def _request(model, batch: int, seed: int):
+    existing = _points(batch, 1024, seed=seed)
+    noise = torch.randn((batch, model.get_noise_size()), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 1)) * 0.13
+    return existing, noise
+
+
+def _eager(served, existing, noise, seed: int) -> torch.Tensor:
+    """The eager forward of a request: ``FullModel.apply`` drawing the ball
+    points from a generator seeded with the request's seed."""
+    return served.apply(existing, None, torch.Generator(device="cuda").manual_seed(seed), 1e9,
+                        num_output_points=2048, training=False, noise=noise)
+
+
+def _per_call(dtype: str, runs: int) -> dict:
+    """The launches of ``runs`` forwards of the chair model: K10 once, K4 once in bf16."""
+    return {"decode_batch.launches": runs,
+            **({"trunk_pooled.launches": runs} if dtype == "bfloat16" else {})}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_serving_equals_the_eager_forward(cuda, dtype):
+    """``make_serving_fn`` replays one graph: each call equals the eager
+    forward with the same seed bit for bit, call 1's output is unchanged
+    after call 2, and the counters read 2 launches of each kernel for the
+    first call (warm-up and replay) and 1 for the second."""
+    from hyperpocket_tpu_torch import serving
+
+    model = _chair(dtype, 20)
+    f = serving.make_serving_fn(model, num_output_points=2048, device=cuda)
+    existing, noise = _request(model, 4, 21)
+    before = _kernel_counts()
+    first = f(existing, noise, 3)
+    torch.cuda.synchronize()
+    assert _launched(before) == _per_call(dtype, 2)
+    kept = first.clone()
+    before = _kernel_counts()
+    second = f(existing, noise, 4)
+    torch.cuda.synchronize()
+    assert _launched(before) == _per_call(dtype, 1)
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert len(f.graphs.graphs) == 1 and f.graphs.replays == 2
+    served = model.serving_params().to(cuda)
+    assert torch.equal(first, _eager(served, existing, noise, 3))
+    assert torch.equal(second, _eager(served, existing, noise, 4))
+
+
+def test_a_second_batch_size_captures_a_second_graph(cuda):
+    """Batches 4, 8, 4: two captures, three replays, each output the eager one."""
+    from hyperpocket_tpu_torch import serving
+
+    model = _chair("bfloat16", 22)
+    f = serving.make_serving_fn(model, num_output_points=2048, device=cuda)
+    served = model.serving_params().to(cuda)
+    before = _kernel_counts()
+    for batch in (4, 8, 4):
+        existing, noise = _request(model, batch, 23 + batch)
+        assert torch.equal(f(existing, noise, batch), _eager(served, existing, noise, batch))
+    assert [key[0][0][0] for key in f.graphs.graphs] == [4, 8]  # the existing clouds' batch
+    assert f.graphs.replays == 3 and len(f.graphs.first_call_ms) == 2
+    assert all(g.pool_bytes > 0 and g.capture_ms > 0 for g in f.graphs.graphs.values())
+    # two warm-ups, three replays and the three eager references
+    assert _launched(before) == _per_call("bfloat16", 2 + 3 + 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_artifact_equals_its_eager_program(cuda, dtype):
+    """``load_completion`` captures its program once and replays it: each
+    call equals the loaded module called directly on the same ball points."""
+    import io
+
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+
+    model = _chair(dtype, 30)
+    data = serving.export_completion(model, batch=4, n_existing=1024, num_output_points=2048,
+                                     device=cuda)
+    f = serving.load_completion(data)
+    program = torch.export.load(io.BytesIO(data)).module()
+    existing, noise = _request(model, 4, 31)
+    meta = f.meta
+    for seed in (6, 7):
+        got = f(existing, noise, seed)
+        balls = generate_target_network_input_batch(
+            meta["target_network_input"], torch.Generator(device=cuda).manual_seed(seed),
+            meta["epoch"], 4, 2048, method=meta["ball_method"])
+        with torch.no_grad():
+            assert torch.equal(got, program(existing, noise, balls))
+    assert len(f.graphs.graphs) == 1 and f.graphs.replays == 2
+
+
+def test_graphed_dp_serving_on_one_rank_equals_the_eager_forward(nccl_group):
+    """``make_serving_fn(mesh=)`` and a ``data_parallel=1`` artifact over a
+    one-rank NCCL group: the all-gather is captured with the forward, and
+    the replays give the eager forward's bits."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.parallel import make_mesh
+
+    model = _chair("bfloat16", 32)
+    dp = serving.make_serving_fn(model, num_output_points=2048, device="cuda",
+                                 mesh=make_mesh(1, 1))
+    kw = dict(batch=4, n_existing=1024, num_output_points=2048, device="cuda")
+    artifact = serving.load_completion(serving.export_completion(model, **kw))
+    dp_artifact = serving.load_completion(serving.export_completion(model, data_parallel=1, **kw))
+    served = model.serving_params().to("cuda")
+    existing, noise = _request(model, 4, 33)
+    for seed in (8, 9):
+        assert torch.equal(dp(existing, noise, seed), _eager(served, existing, noise, seed))
+        assert torch.equal(dp_artifact(existing, noise, seed), artifact(existing, noise, seed))
+    assert dp.graphs.replays == dp_artifact.graphs.replays == 2
+    assert len(dp.graphs.graphs) == len(dp_artifact.graphs.graphs) == 1
+
+
+def test_a_served_forward_that_syncs_the_host_raises_naming_the_line(cuda, monkeypatch):
+    """``.item()`` inside the served forward: GraphCaptureError naming that
+    line, the warm-up's launches counted and the capture's taken back, no
+    graph kept, and the card still works after it. Nothing serves eagerly:
+    the next call captures again and raises again."""
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.models.hyper_network import HyperNetwork
+    from hyperpocket_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    inner = HyperNetwork.forward
+
+    def forward(self, latent, **kwargs):
+        latent.abs().max().item()  # a host sync
+        return inner(self, latent, **kwargs)
+
+    monkeypatch.setattr(HyperNetwork, "forward", forward)
+    model = _chair("bfloat16", 34)
+    f = serving.make_serving_fn(model, num_output_points=2048, device=cuda)
+    existing, noise = _request(model, 4, 35)
+    for _ in range(2):
+        before = _kernel_counts()
+        with pytest.raises(GraphCaptureError, match=r"latent\.abs\(\)\.max\(\)\.item\(\)"):
+            f(existing, noise, 1)
+        torch.cuda.synchronize()
+        assert _launched(before) == _per_call("bfloat16", 1)
+    assert f.graphs.graphs == {} and f.graphs.replays == 0
+    assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+def test_infer_writes_the_plys_of_the_eager_forward(cuda, tmp_path, monkeypatch):
+    """``infer --config``, ``infer --artifact`` and ``infer --latent-prior``
+    through the graphs write the PLYs, byte for byte, that they write with
+    the graph cache made to call its function eagerly."""
+    import json
+    import os
+
+    import numpy as np
+
+    from hyperpocket_tpu_torch import serving
+    from hyperpocket_tpu_torch.convert import save_jax_npz
+    from hyperpocket_tpu_torch.data.plyio import save_ply
+    from hyperpocket_tpu_torch.eval.latent_stats import LatentGaussian, save_latent_gaussian
+    from hyperpocket_tpu_torch.train.config import get_results_dir_path
+    from hyperpocket_tpu_torch.utils.cuda_graph import GraphCache
+
+    config = _settings("config_3depn_chair.json")
+    config["full_model"]["compute_dtype"] = "bfloat16"
+    config["results_root"] = str(tmp_path / "results")
+    model = _chair("bfloat16", 36)
+    training = get_results_dir_path(config, "training")
+    os.makedirs(os.path.join(training, "weights"))
+    os.makedirs(os.path.join(training, "metrics"))
+    save_jax_npz(os.path.join(training, "weights", "00001_model.npz"), model)
+    np.save(os.path.join(training, "metrics", "00001_val.npy"), np.array([[1.0]]))
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(config))
+    rng = np.random.default_rng(37)
+    plys = []
+    for i, n in enumerate((3000, 1500, 2500)):
+        plys.append(str(tmp_path / f"scan{i}.ply"))
+        save_ply(plys[-1], rng.normal(size=(n, 3)).astype(np.float32) * 0.2 + np.float32(i))
+    art = str(tmp_path / "chair.pt2")
+    assert serving.main(["export", "-c", str(cfg), "--out", art, "--batch", "4"]) == 0
+    zdim = model.get_noise_size()
+    prior = str(tmp_path / "prior.npz")
+    save_latent_gaussian(LatentGaussian(rng.normal(size=zdim).astype(np.float32) * 0.1,
+                                        np.eye(zdim, dtype=np.float32) * 0.13), prior)
+    runs = {"config": ["--config", str(cfg), "--batch", "4", "--noise-std", "0.13"],
+            "artifact": ["--artifact", art, "--noise-std", "0.13"],
+            "latent_prior": ["--artifact", art, "--latent-prior", prior]}
+
+    def written(route: str) -> dict:
+        out = {}
+        for name, args in runs.items():
+            out_dir = tmp_path / route / name
+            assert serving.main(["infer", *args, "--inputs", *plys, "--out-dir", str(out_dir),
+                                 "--samples", "2", "--seed", "5"]) == 0
+            out.update({f"{name}/{p.name}": p.read_bytes() for p in out_dir.glob("*.ply")})
+        return out
+
+    def call_eagerly(self, *inputs, seed=None):
+        """The cache's function called directly, its generator seeded as a call seeds it."""
+        self.generator.manual_seed(int(seed))
+        return self.fn(*inputs)
+
+    graphed = written("graphed")
+    monkeypatch.setattr(GraphCache, "__call__", call_eagerly)
+    eager = written("eager")
+    assert len(graphed) == 18 and graphed == eager
