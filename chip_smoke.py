@@ -60,10 +60,11 @@ Phases, each fatal on any error:
    and ``loss_coef`` from the config, B=64 (existing and missing 1024 points,
    gt 2048). fp32: the first step's gradients through the kernels against
    the plain Chamfer's on the same injected noise and ball points (relative
-   L2 <= 1e-3), then 5 train steps (K1 twice per step) and a val step at
-   B=60 (K3 once, K10 once); bf16: 3 train steps and a val step (K4 twice,
-   K3 once, K10 once); train steps launch no K10. Losses finite, parameters
-   changed; train and val step times at B=64.
+   L2 <= 1e-3), then 5 train steps (K9 once per step, K1 never: the card's
+   Chamfer route, ``ops/nn.py::chamfer_grad_route``) and a val step at
+   B=60 (K3 once, K10 once); bf16: 3 train steps (K9 once each) and a val
+   step (K4 twice, K3 once, K10 once); train steps launch no K10. Losses
+   finite, parameters changed; train and val step times at B=64.
 
 9. EMD kernels vs plain: K6 (``match_cost_fwd_kernel``) and K7
    (``match_cost_bwd_kernel``, ``ops/emd.py``) against their plain versions
@@ -114,16 +115,17 @@ Phases, each fatal on any error:
    (bf16, bf16 Adam moments, ``compute_dtype_switch`` at epoch 1,
    ``HPCD_TRUNK_FUSED_FWD=1``), 2 epochs each, then a relaunch with max_epoch
    3 that must resume at epoch 3; files written, epoch times and ms per step,
-   launches (K1 twice a train step, K3 once a val batch, K8 twice a bf16 train
-   step, K4 twice a bf16 val batch, K10 once per inference forward).
+   launches (K9 once a train step, K3 once a val batch, K8 twice a bf16 train
+   step, K4 twice a bf16 val batch, K10 once per inference forward, and in
+   the fast config adam_lowp once a step for each tensor with a gradient).
 15. fused train step: 3 steps of ``make_fused_train_step`` (K11 once a step)
    against ``make_train_step`` at full width, B=64, bf16, from the same
    weights and draws: step-0 losses within 1e-6, all within 1e-2.
 16. K5 (``nn_fused_planes``) and the partial-to-completion NN path: the
    chair served in fp32 completes B=64 halves of 1024 points into 2048, then
-   ``ops.nn_distance_pallas(existing, completion)`` and
-   ``ops.chamfer_loss_auto`` under grad with their backward (K2): K5 must
-   launch once each and K1 never, the gradient that of ``nn_backward``. K5
+   ``ops.nn_distance_pallas(existing, completion)`` (K5, backward K2) and
+   ``ops.chamfer_loss_auto`` under grad (K9): each launches once and K1
+   never, both gradients that of ``nn_backward`` on K5's indices. K5
    against its plain version and against K1 run once each way at B=64 with
    1024x2048, 2048x1024 and 2048x2048, ragged clouds, more keys than one
    staged chunk, duplicated points on both sides, duplicated keys half the
@@ -186,8 +188,8 @@ Phases, each fatal on any error:
 21. HyperRec: ``settings/config_completion.json``'s model at full width,
    fp32 with TF32 off, B=66 partial and gt clouds of 2048 points: the first
    step's gradients through the kernels against the plain Chamfer's
-   (relative L2 <= 1e-3, K1 twice), then 3 train steps (K1 twice a step, no
-   K3, K4 or K10) and a val step at B=10 (K3 once, K10 once), ms per step. Where ``h5py``
+   (relative L2 <= 1e-3, K9 once), then 3 train steps (K9 once a step, no
+   K1, K3, K4 or K10) and a val step at B=10 (K3 once, K10 once), ms per step. Where ``h5py``
    is installed, a synthetic Completion3D ``.list``/``.h5`` tree is read
    through ``get_datasets``; where it is not, one line says so.
    Phases 19-21 print their wall time.
@@ -198,8 +200,10 @@ Phases, each fatal on any error:
    ``use_mesh=True`` and the one-process Trainer on the full-width chair
    config in fp32, one epoch of 3 steps at B=64 on a 192-item 3D-EPN corpus
    the smoke writes and its val epoch each, with deterministic algorithms
-   (K2's ``index_add_`` sums by CUDA atomics otherwise): losses, parameters
-   and val loss bit-equal; K1 twice a step, K3 and K10 once a val batch;
+   (K2's ``index_add_`` sums by CUDA atomics otherwise; under them the loss
+   takes the streaming Chamfer, K9's gradients being atomic sums too):
+   losses, parameters and val loss bit-equal; K1 twice a step, K3 and K10
+   once a val batch;
    both step times, with the default algorithms.
    23: ``chamfer_loss_point_sharded`` at B=64, 2048x2048 (K1 twice) and
    1024x2048 (K5 once) against the plain ``chamfer_loss`` by phase 7's
@@ -219,15 +223,35 @@ Phases, each fatal on any error:
    false; val at B=60, 8 uniform batches and one of 40), in fp32, bf16 and
    the fast config with ``HPCD_TRUNK_FUSED_FWD=1`` (K8; its dtype switch at
    epoch 1, so epoch 2 recaptures in fp32), 2 epochs and their val epochs
-   each, with deterministic algorithms: loss rows, val losses and
-   parameters bit-equal to the step loop's; 2 scanned epochs and 2
-   scanned val categories, 16 + 16 replays, and launches equal to the step
-   loop's plus one rehearsal step a compute dtype. Then, with the default
-   algorithms, on an epoch's uniform prefix already on the card (no
+   each, with deterministic algorithms (the streaming Chamfer, K1 twice a
+   step): loss rows, val losses and parameters bit-equal to the step
+   loop's; 2 scanned epochs and 2 scanned val categories, 16 + 16 replays,
+   and launches equal to the step loop's plus one rehearsal step a compute
+   dtype (the fast config's adam_lowp once a tensor a step). Then, with the
+   default algorithms, on an epoch's uniform prefix already on the card (no
    loader), train and val: ms per step both ways in turns (step, scan,
    scan, step, step, scan), the capture's ms and each way's busy share over
    one epoch (``torch.profiler``; the scan's over its replays, and with its
    capture).
+
+27. the training path's Chamfer route and the bf16-moment Adam: the
+   adam_lowp kernel (``ops/adam_lowp.py``) against its plain version on
+   the chair model's 44 trainable tensors, three steps bit for bit
+   (parameters and both moments) for each pair of parameter dtype (fp32,
+   bf16, fp16) and moment dtype (bf16, fp16, fp32), Adam and AdamW with
+   decay, and the fast config's Adam with bf16 and fp16 moments eagerly and
+   replayed in a captured step; timed a step beside the plain loop and
+   torch's fused Adam (fp32 moments). K9's value and gradient captured in a
+   CUDA graph and replayed on new clouds within 1e-5 of the eager call.
+   Then the previous path ("parent": the streaming Chamfer and the plain
+   Adam loop) against this one ("change": K9 and adam_lowp) in turns (A B
+   B A, twice): the loss's value and gradient at B=64, 2048x2048 and
+   2048x1024; train steps at B=64 in the step loop for the chair config in
+   fp32 and bf16, the fast config (bf16, bf16 moments, K8) and HyperRec at
+   B=66; scanned epochs (phase 26's Trainer) for the three chair cases;
+   on the fast config's scanned epoch, K8 against the cuBLAS trunk in
+   turns, each way's busy share, adam_lowp's device ms a step and a
+   replay's launches. Phase 27 prints its wall time.
 
 Serving through CUDA graphs (phases 4, 5, 19, 20, 25 and the profile):
 every serving callable captures its forward once for each input signature
@@ -260,6 +284,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -406,17 +431,19 @@ def clouds_per_s(fn, batch: int, iters: int = 10, windows: int = 5, warmup: int 
             "window_clouds_per_s": [batch * iters / s for s in seconds]}
 
 
-def device_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3,
+              sleep_cycles: int = 20_000_000) -> float:
     """Median over windows of the per-call device time, the calls queued
-    behind a sleep kernel so that the host's time per call leaves no gap
-    between them (CUDA events)."""
+    behind a sleep kernel (``sleep_cycles``, ~10 ms at 2 GHz by default:
+    longer than queueing the calls) so that the host's time per call leaves
+    no gap between them (CUDA events)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz: longer than queueing the calls
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(iters):
             fn()
@@ -1089,7 +1116,7 @@ def drive_training(config: dict, model32, device) -> dict:
     """The training slice: train steps and val steps in fp32 and bf16, with launch counts."""
     from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
-    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad, nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
     from hyperpocket_tpu_torch.train import optim, trainer
@@ -1099,7 +1126,7 @@ def drive_training(config: dict, model32, device) -> dict:
     trainer.set_matmul_precision(tr.get("matmul_precision", "highest"))
     loss_coef = float(tr["loss_coef"])
     out = {}
-    kernels = (nn_one_direction, nn_min_fused, trunk_pooled, decode_batch)
+    kernels = (nn_one_direction, chamfer_loss_grad, nn_min_fused, trunk_pooled, decode_batch)
 
     def reset():
         for k in kernels:
@@ -1107,6 +1134,7 @@ def drive_training(config: dict, model32, device) -> dict:
 
     def counts():
         return {"nn_one_direction": nn_one_direction.launches,
+                "chamfer_loss_grad": chamfer_loss_grad.launches,
                 "nn_min_fused": nn_min_fused.launches, "trunk_pool": trunk_pooled.launches,
                 "decode_batch": decode_batch.launches}
 
@@ -1127,11 +1155,12 @@ def drive_training(config: dict, model32, device) -> dict:
             reset()
             g_kernel = first_step_grads(model, params, batch, balls,
                                         lambda gt, rec: reconstruction_loss(gt, rec, loss_coef))
-            k1_grad = nn_one_direction.launches
+            grad_counts = counts()
             g_plain = first_step_grads(model, params, batch, balls,
                                        lambda gt, rec: loss_coef * chamfer_loss(gt, rec))
-            check(k1_grad == 2 and nn_one_direction.launches == 2,
-                  f"the gradient check launched K1 {k1_grad} / {nn_one_direction.launches} times")
+            check(grad_counts["chamfer_loss_grad"] == 1 and grad_counts["nn_one_direction"] == 0
+                  and counts() == grad_counts,
+                  f"the gradient check launched {grad_counts}, then {counts()}")
             rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
             print(f"training fp32: first-step gradients, kernels vs plain Chamfer, "
                   f"relative L2 {rel!r} (limit {STEP_GRAD_REL_L2})")
@@ -1162,10 +1191,10 @@ def drive_training(config: dict, model32, device) -> dict:
               f"{dtype}: reconstruction {tuple(rec.shape)} {rec.dtype}")
         check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
               f"{dtype}: a parameter with a gradient did not change")
-        check(train_counts == {"nn_one_direction": 2 * steps, "nn_min_fused": 0, "trunk_pool": 0,
-                               "decode_batch": 0},
+        check(train_counts == {"nn_one_direction": 0, "chamfer_loss_grad": steps,
+                               "nn_min_fused": 0, "trunk_pool": 0, "decode_batch": 0},
               f"{dtype}: {steps} train steps launched {train_counts}")
-        want_val = {"nn_one_direction": 0, "nn_min_fused": 1,
+        want_val = {"nn_one_direction": 0, "chamfer_loss_grad": 0, "nn_min_fused": 1,
                     "trunk_pool": 2 if dtype == "bfloat16" else 0, "decode_batch": 1}
         check(val_counts == want_val, f"{dtype}: the val step launched {val_counts}")
 
@@ -1495,14 +1524,17 @@ def drive_cli_training(device, tmp: Path) -> dict:
     import importlib.util
 
     from hyperpocket_tpu_torch import cli
+    from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
-    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad, nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
+    from hyperpocket_tpu_torch.train import optim
     from hyperpocket_tpu_torch.train import trainer as trainer_mod
 
-    kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
-               "trunk_pool": trunk_pooled, "trunk_pool_argmax": trunk_pooled_argmax,
-               "decode_batch": decode_batch}
+    kernels = {"nn_one_direction": nn_one_direction, "chamfer_loss_grad": chamfer_loss_grad,
+               "nn_min_fused": nn_min_fused, "trunk_pool": trunk_pooled,
+               "trunk_pool_argmax": trunk_pooled_argmax, "decode_batch": decode_batch,
+               "adam_lowp": adam_lowp_update}
     data = tmp / "train_data"
     t0 = time.perf_counter()
     write_train_corpus(data)
@@ -1575,11 +1607,17 @@ def drive_cli_training(device, tmp: Path) -> dict:
                       f"{cfg_name}: steps per epoch {steps}")
                 bf16_epochs = [e for e in epochs if fused and e <= 1]
                 val_batches = -(-TRAIN_MODELS * TRAIN_SAMPLES // VAL_BATCH)
-                want = {"nn_one_direction": 2 * sum(steps),
+                # the fast config's Adam keeps bf16 moments: one adam_lowp launch a
+                # step for each trainable tensor with a gradient (the deterministic
+                # real encoder's std head has none)
+                tensors = sum(p.grad is not None
+                              for p in optim.trainable_parameters(trainer.model))
+                want = {"nn_one_direction": 0, "chamfer_loss_grad": sum(steps),
                         "nn_min_fused": val_batches * len(epochs),
                         "trunk_pool": 2 * val_batches * len(bf16_epochs),
                         "trunk_pool_argmax": 2 * steps[0] * len(bf16_epochs),
-                        "decode_batch": len(forwards)}
+                        "decode_batch": len(forwards),
+                        "adam_lowp": tensors * sum(steps) if fused else 0}
                 check(len(forwards) >= val_batches * len(epochs),
                       f"{cfg_name}: {len(forwards)} inference forwards in {len(epochs)} epochs")
                 check(launches == want, f"{cfg_name}: launches {launches}, expected {want}")
@@ -1692,17 +1730,18 @@ def nn_fused_vs_plain(model32, device) -> dict:
     noise = torch.randn((SERVE_BATCH, model32.get_noise_size()), generator=gen,
                         device=device) * 0.13
     completion = f(existing, noise, 15).requires_grad_()
-    nn_fused_planes.launches = nn_one_direction.launches = 0
+    nn_fused_planes.launches = nn_one_direction.launches = nn.chamfer_loss_grad.launches = 0
     d1, i1, d2, i2 = ops.nn_distance_pallas(existing, completion)
     (g_nn,) = torch.autograd.grad(d1.sum() + d2.sum(), completion)
     loss = ops.chamfer_loss_auto(existing, completion)
     (g_loss,) = torch.autograd.grad(loss, completion)
     torch.cuda.synchronize()
     launches = {"nn_fused_planes": nn_fused_planes.launches,
-                "nn_one_direction": nn_one_direction.launches}
+                "nn_one_direction": nn_one_direction.launches,
+                "chamfer_loss_grad": nn.chamfer_loss_grad.launches}
     print(f"K5 path: completion {tuple(completion.shape)}, launches {launches}")
-    check(launches == {"nn_fused_planes": 2, "nn_one_direction": 0},
-          f"the N != M grad NN path launched {launches}, expected K5 twice and K1 never")
+    check(launches == {"nn_fused_planes": 1, "nn_one_direction": 0, "chamfer_loss_grad": 1},
+          f"the N != M grad NN path launched {launches}, expected K5 and K9 once, K1 never")
     want = nn_fused_planes_reference(existing, completion.detach())
     check(all(torch.equal(g, w) for g, w in zip((d1, i1, d2, i2), want)),
           "nn_distance_pallas differs from K5's plain version")
@@ -2304,10 +2343,10 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     """Phase 21: ``settings/config_completion.json``'s HyperRec model at full
     width, fp32 with TF32 off, B=66 partial and gt clouds of 2048 points:
     first-step gradients through the kernels against the plain Chamfer, 3
-    train steps (K1 twice a step) and a val step at B=10 (K3 once)."""
+    train steps (K9 once a step) and a val step at B=10 (K3 once)."""
     from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
-    from hyperpocket_tpu_torch.ops.nn import nn_min_fused, nn_one_direction
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad, nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
     from hyperpocket_tpu_torch.train import optim, trainer
@@ -2328,8 +2367,9 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     partial = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
     gt = torch.randn((batch, N_OUT, 3), generator=gen, device=device) * 0.3
-    kernels = {"nn_one_direction": nn_one_direction, "nn_min_fused": nn_min_fused,
-               "trunk_pool": trunk_pooled, "decode_batch": decode_batch}
+    kernels = {"nn_one_direction": nn_one_direction, "chamfer_loss_grad": chamfer_loss_grad,
+               "nn_min_fused": nn_min_fused, "trunk_pool": trunk_pooled,
+               "decode_batch": decode_batch}
 
     def reset():
         for k in kernels.values():
@@ -2351,8 +2391,9 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     rel = ((g_kernel - g_plain).norm() / g_plain.norm()).item()
     print(f"hyperrec: first-step gradients, kernels vs plain Chamfer, relative L2 {rel!r} "
           f"(limit {STEP_GRAD_REL_L2}); launches {grad_counts}")
-    check(grad_counts == {"nn_one_direction": 2, "nn_min_fused": 0, "trunk_pool": 0,
-                          "decode_batch": 0}, f"hyperrec gradient check launched {grad_counts}")
+    check(grad_counts == {"nn_one_direction": 0, "chamfer_loss_grad": 1, "nn_min_fused": 0,
+                          "trunk_pool": 0, "decode_batch": 0},
+          f"hyperrec gradient check launched {grad_counts}")
     check(rel <= STEP_GRAD_REL_L2, f"hyperrec first-step gradient relative L2 {rel}")
 
     before = [p.detach().clone() for p in params]
@@ -2376,10 +2417,12 @@ def drive_hyperrec(device, tmp: Path) -> dict:
     check(rec.shape == (batch, N_OUT, 3), f"hyperrec reconstruction {tuple(rec.shape)}")
     check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
           "hyperrec: a parameter with a gradient did not change")
-    check(train_counts == {"nn_one_direction": 6, "nn_min_fused": 0, "trunk_pool": 0,
-                           "decode_batch": 0}, f"hyperrec: 3 train steps launched {train_counts}")
-    check(val_counts == {"nn_one_direction": 0, "nn_min_fused": 1, "trunk_pool": 0,
-                         "decode_batch": 1}, f"hyperrec: the val step launched {val_counts}")
+    check(train_counts == {"nn_one_direction": 0, "chamfer_loss_grad": 3, "nn_min_fused": 0,
+                           "trunk_pool": 0, "decode_batch": 0},
+          f"hyperrec: 3 train steps launched {train_counts}")
+    check(val_counts == {"nn_one_direction": 0, "chamfer_loss_grad": 0, "nn_min_fused": 1,
+                         "trunk_pool": 0, "decode_batch": 1},
+          f"hyperrec: the val step launched {val_counts}")
     out.update(first_step_grad_rel_l2=rel, losses=losses, val_loss=val_loss.item(),
                train_launches=train_counts, val_launches=val_counts)
     out["train_step"] = step_ms(lambda i: train_step(partial, None, gt, gen, 1.0, N_OUT))
@@ -2830,14 +2873,20 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
             step, scan = runs["step"], runs["scan"]
             bf16_epochs = sum(d == "bfloat16" for d in step["dtypes"])
             n_dtypes = len(set(step["dtypes"]))
+            # deterministic algorithms: the streaming Chamfer (K1 twice a step);
+            # the fast config's Adam launches adam_lowp once a tensor with a gradient
+            tensors = k8 * sum(p.grad is not None
+                               for p in trainers["step"].optimizer.param_groups[0]["params"])
             want_step = {"nn_one_direction": 2 * 2 * train_batches,
                          "nn_min_fused": 2 * val_batches, "decode_batch": 2 * val_batches,
                          "trunk_pooled": 2 * val_batches * bf16_epochs,
-                         "trunk_pooled_argmax": 2 * train_batches * bf16_epochs * k8}
+                         "trunk_pooled_argmax": 2 * train_batches * bf16_epochs * k8,
+                         "adam_lowp_update": 2 * train_batches * tensors}
             want_step = {k: v for k, v in want_step.items() if v}
             rehearsal = {"nn_one_direction": 2 * n_dtypes, "nn_min_fused": n_dtypes,
                          "decode_batch": n_dtypes, "trunk_pooled": 2 * bool(bf16_epochs),
-                         "trunk_pooled_argmax": 2 * bool(bf16_epochs) * k8}
+                         "trunk_pooled_argmax": 2 * bool(bf16_epochs) * k8,
+                         "adam_lowp_update": tensors * n_dtypes}
             want_scan = {k: v + rehearsal[k] for k, v in want_step.items()}
             summary = {k: v for k, v in scan.items() if k not in ("rows", "params")}
             summary["step_launches"] = step["launches"]
@@ -2887,6 +2936,399 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
         summary["wall_s"] = time.perf_counter() - t0
         out[name] = summary
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the training path's Chamfer route (K9 against K1 twice + K2) and
+# the bf16-moment Adam (``ops/adam_lowp.py``) against their previous forms.
+
+FAST_CONFIG = ROOT / "settings" / "config_3depn_chair_fast.json"
+AB_ORDER = ("a", "b", "b", "a")  # one round of turns; phase 27 runs two
+
+
+@contextlib.contextmanager
+def train_route(route: str):
+    """The training loss's Chamfer route inside the block: "k9" is
+    ``chamfer_grad_route``'s own; "streaming" sends its K9 cases to the
+    streaming value and gradient (K1 twice, or K5, and K2), the route the
+    port trained on before K9 was measured faster."""
+    from hyperpocket_tpu_torch.ops import nn as nn_ops
+
+    own = nn_ops.chamfer_grad_route
+    if route == "streaming":
+        nn_ops.chamfer_grad_route = lambda g, p: "streaming" if own(g, p) == "k9" else own(g, p)
+    try:
+        yield
+    finally:
+        nn_ops.chamfer_grad_route = own
+
+
+@contextlib.contextmanager
+def adam_route(route: str):
+    """``AdamLowp``'s per-tensor update inside the block: "kernel"
+    (``adam_lowp_update``, one launch a tensor) or "plain" (the torch
+    arithmetic, ``adam_lowp_update_reference``, on the card)."""
+    from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update_reference
+    from hyperpocket_tpu_torch.train import optim
+
+    own = optim.adam_lowp_update
+    if route == "plain":
+        optim.adam_lowp_update = adam_lowp_update_reference
+    try:
+        yield
+    finally:
+        optim.adam_lowp_update = own
+
+
+def _ab_turns(measure, routes: dict, rounds: int = 2) -> dict:
+    """``measure()`` under each of the two routes in turns, A B B A per round:
+    ``routes`` maps a name to the context manager that sets it up."""
+    (a, ctx_a), (b, ctx_b) = routes.items()
+    turns = {a: [], b: []}
+    for _ in range(rounds):
+        for which in AB_ORDER:
+            name, ctx = (a, ctx_a) if which == "a" else (b, ctx_b)
+            with ctx():
+                turns[name].append(measure())
+    return turns
+
+
+def adam_lowp_vs_plain(model32, device) -> dict:
+    """The adam_lowp kernel against its plain version on the chair model's
+    44 trainable tensors (43.3 M values): three steps of ``AdamLowp`` with
+    random gradients, each kernel launch bit-equal to the plain torch
+    arithmetic (parameters and both moments) for every dtype pair it
+    instantiates, Adam and AdamW with weight decay, and the fast config's
+    Adam (no decay) with bf16 and fp16 moments eagerly and replayed in a
+    captured step. A step's updates timed on the device beside the plain
+    arithmetic and torch's fused Adam with fp32 moments, and ``step``'s
+    wall time (its bias corrections included)."""
+    from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update, adam_lowp_update_reference
+    from hyperpocket_tpu_torch.train import optim
+
+    shapes = [tuple(p.shape) for p in optim.trainable_parameters(model32)]
+    lr = 1e-4
+
+    def tensors(dtype, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        ps = [(torch.randn(s, generator=g, device=device) * 0.02).to(dtype) for s in shapes]
+        grads = [[(torch.randn(s, generator=g, device=device)
+                   * 10.0 ** torch.randint(-6, 1, s, generator=g, device=device)).to(dtype)
+                  for s in shapes] for _ in range(3)]
+        return ps, grads
+
+    def run(dtype, md, kind, wd, route, graphed, seed):
+        ps, grads = tensors(dtype, seed)
+        params = [torch.nn.Parameter(p) for p in ps]
+        opt = optim.make_optimizer({"type": kind, "hyperparams": {
+            "lr": lr, "weight_decay": wd, "moment_dtype": md}}, params)
+        with adam_route(route):
+            if not graphed:
+                for step_grads in grads:
+                    for p, g in zip(params, step_grads):
+                        p.grad = g.clone()
+                    opt.step()
+            else:
+                for p, g in zip(params, grads[0]):
+                    p.grad = g.clone()
+                # the first step eagerly creates the state, then one capture
+                opt.step()
+                graph = torch.cuda.CUDAGraph()
+                torch.cuda.synchronize()
+                with torch.cuda.graph(graph):
+                    opt.step()
+                for step_grads in grads[1:]:
+                    for p, g in zip(params, step_grads):
+                        p.grad.copy_(g)
+                    graph.replay()
+        torch.cuda.synchronize()
+        return [(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"]) for p in params]
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [(dt, md, kind, 1e-2, False) for dt in (f32, bf16, f16) for md in ("bfloat16",
+             "float16", "float32") for kind in ("Adam", "AdamW")]
+    cases += [(f32, md, "Adam", 0.0, graphed) for md in ("bfloat16", "float16")
+              for graphed in (False, True)]
+    out = {"cases": {}, "tensors": len(shapes), "values": sum(math.prod(s) for s in shapes)}
+    for i, (dt, md, kind, wd, graphed) in enumerate(cases):
+        name = (f"{str(dt).removeprefix('torch.')}_{md}_{kind}_wd{wd}"
+                + ("_graphed" if graphed else ""))
+        adam_lowp_update.launches = 0
+        got = run(dt, md, kind, wd, "kernel", graphed, SEED + 40 + i)
+        launches = adam_lowp_update.launches
+        want = run(dt, md, kind, wd, "plain", False, SEED + 40 + i)
+        equal = all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for g, w in zip(got, want) for a, b in zip(g, w))
+        out["cases"][name] = {"bit_equal": equal, "max_abs_err": diff, "launches": launches}
+        del got, want
+        check(equal, f"adam_lowp {name}: kernel differs from the plain version by {diff}")
+        # graphed: the eager first step and the capture's records (a bare graph's
+        # replays count nothing)
+        want_launches = len(shapes) * (2 if graphed else 3)
+        check(launches == want_launches,
+              f"adam_lowp {name}: {launches} launches, expected {want_launches}")
+    print(f"adam_lowp vs plain: {len(cases)} cases bit-equal over 3 steps "
+          f"({json.dumps(out['cases'])})")
+    # one step's updates over the model's tensors at the fast config's dtypes, device
+    # time (the launches queued behind a sleep): the kernel once a tensor, the plain
+    # arithmetic, and torch's fused Adam with fp32 moments, the nearest one call
+    ps, grads = tensors(f32, SEED + 39)
+    params = [torch.nn.Parameter(p) for p in ps]
+    for p, g in zip(params, grads[0]):
+        p.grad = g
+    opt = optim.make_optimizer({"type": "Adam", "hyperparams": {
+        "lr": lr, "moment_dtype": "bfloat16"}}, params)
+    fused = torch.optim.Adam(params, lr=lr, fused=True)
+    opt.step(), fused.step()
+    states = [opt.state[p] for p in params]
+    bc1, bc2 = (torch.full((), 1 - b ** 3, device=device) for b in (0.9, 0.999))
+
+    def updates(update):
+        for p, st in zip(params, states):
+            update(p, p.grad, st["mu"], st["nu"], bc1, bc2, lr=lr, b1=0.9, b2=0.999, eps=1e-8)
+
+    values = out["values"]
+    slow = 60_000_000  # ~30 ms: longer than queueing a step's ~900 plain launches
+    # fp32 p and g read, p written, bf16 mu and nu read and written: 20 bytes a value
+    t = {"ms": device_ms(lambda: updates(adam_lowp_update), iters=10, sleep_cycles=slow),
+         "plain_ms": device_ms(lambda: updates(adam_lowp_update_reference), iters=2,
+                               sleep_cycles=slow),
+         "library_ms": device_ms(fused.step, iters=10, sleep_cycles=slow),
+         "step_wall_ms": cuda_ms(opt.step),
+         **bound(20 * values, 30 * values / FP32_FLOPS)}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    out["times"] = t
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"].values())
+    print(f"adam_lowp timing, {len(shapes)} tensors, {values} values a step: {json.dumps(t)}")
+    del params, opt, fused, ps, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def k9_replays_as_eager(device) -> dict:
+    """``chamfer_loss_auto``'s K9 value and gradient captured in a CUDA graph
+    and replayed on new inputs: within K9's gate of the eager call."""
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_auto, chamfer_loss_grad
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    gts = torch.randn((TRAIN_BATCH, N_OUT, 3), generator=gen, device=device) * 0.3
+    preds = (torch.randn((TRAIN_BATCH, N_OUT, 3), generator=gen, device=device) * 0.3)
+    preds.requires_grad_()
+
+    def value_and_grad():
+        loss = chamfer_loss_auto(gts, preds)
+        return loss.detach(), torch.autograd.grad(loss, preds)[0]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        value_and_grad()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = chamfer_loss_grad.launches
+    with torch.cuda.graph(graph):
+        loss_s, grad_s = value_and_grad()
+    check(chamfer_loss_auto.route == "k9", f"the captured loss took {chamfer_loss_auto.route}")
+    errs = []
+    for s in range(2):
+        with torch.no_grad():
+            gts.copy_(torch.randn(gts.shape, generator=gen, device=device) * 0.3)
+            preds.copy_(torch.randn(preds.shape, generator=gen, device=device) * 0.3)
+        graph.replay()
+        loss_e, grad_e = value_and_grad()
+        torch.cuda.synchronize()
+        errs.append({"value_rel": abs(loss_s.item() - loss_e.item()) / loss_e.item(),
+                     "grad_err_to_scale": ((grad_s - grad_e).abs().max()
+                                           / grad_e.abs().max()).item()})
+    res = {"replays": errs, "launches_in_capture": chamfer_loss_grad.launches - before}
+    print(f"K9 replayed against eager: {json.dumps(res)}")
+    check(all(e["value_rel"] <= CHAMFER_RTOL and e["grad_err_to_scale"] <= CHAMFER_RTOL
+              for e in errs), f"K9's replays differ from eager: {errs}")
+    return res
+
+
+def _route_model(config_path: Path, dtype: str, seed: int, device):
+    """A step function of a config's model at full width, with its optimizer."""
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    config, model = build_model(dtype, config_path, seed)
+    tr = config["training"]
+    trainer.set_matmul_precision(tr.get("matmul_precision", "highest"))
+    model = model.to(device)
+    opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(model))
+    return model, trainer.make_train_step(model, opt, float(tr["loss_coef"]))
+
+
+def drive_train_routes(device, tmp: Path, route_ctx=train_route, adam_ctx=adam_route,
+                       rounds: int = 2) -> dict:
+    """Phase 27's A/B: the previous training path ("parent": the streaming
+    Chamfer value and gradient, and on the fast config the plain
+    ``AdamLowp`` loop) against this one ("change": K9 and the adam_lowp
+    kernel), in turns (A B B A, ``rounds`` times) in one process: the loss's
+    value and gradient alone at B=64, 2048x2048 and 2048x1024 (device ms,
+    CUDA events); train steps at B=64 in the step loop (host ms a step
+    over windows that end in a synchronize) for the chair config in fp32
+    and bf16 and the fast config (bf16, bf16 moments, K8), and HyperRec's at
+    B=66; the same three chair cases as scanned epochs (phase 26's Trainer,
+    an epoch's uniform prefix on the card: the step loop's and the scan's
+    ms a step, the capture left out). Then, on the change, the fast config's
+    scanned epoch with K8 against the cuBLAS trunk, the busy share and the
+    launches of one scanned epoch each way."""
+    from hyperpocket_tpu_torch.train import trainer as trainer_mod
+    from hyperpocket_tpu_torch.train.losses import reconstruction_loss
+
+    def both(route, adam=None):
+        @contextlib.contextmanager
+        def ctx():
+            with route_ctx(route), (adam_ctx(adam) if adam else contextlib.nullcontext()):
+                yield
+        return ctx
+
+    routes = {"parent": both("streaming"), "change": both("k9")}
+    fast_routes = {"parent": both("streaming", "plain"), "change": both("k9", "kernel")}
+    out = {"loss": {}, "step_loop": {}, "scan": {}}
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    for name, m in (("2048x2048", N_OUT), ("2048x1024", N_EXISTING)):
+        gts = torch.randn((TRAIN_BATCH, N_OUT, 3), generator=gen, device=device) * 0.3
+        preds = (torch.randn((TRAIN_BATCH, m, 3), generator=gen, device=device) * 0.3)
+        preds.requires_grad_()
+
+        def value_and_grad():
+            torch.autograd.grad(reconstruction_loss(gts, preds, 1.0), preds)
+
+        out["loss"][name] = _ab_turns(lambda: cuda_ms(value_and_grad, windows=3), routes, rounds)
+        print(f"train routes: Chamfer value and gradient B={TRAIN_BATCH} {name}, ms: "
+              f"{json.dumps(out['loss'][name])}")
+    os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"  # the fast config's recipe: K8 in training
+    try:
+        for case, cfg, dtype, ab in (("fp32", CONFIG, "float32", routes),
+                                     ("bf16", CONFIG, "bfloat16", routes),
+                                     ("fast", FAST_CONFIG, "bfloat16", fast_routes),
+                                     ("hyperrec", COMPLETION_CONFIG, "float32", routes)):
+            if case != "fast":
+                os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+            else:
+                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+            model, step = _route_model(cfg, dtype, SEED + 51, device)
+            batch = 66 if case == "hyperrec" else TRAIN_BATCH
+            b = train_batch(model, batch, SEED + 52, device)
+            missing = None if case == "hyperrec" else b["missing"]
+            existing = b["gt"] if case == "hyperrec" else b["existing"]
+
+            def one_step(i, step=step, existing=existing, missing=missing, b=b):
+                step(existing, missing, b["gt"], gen, 1.0, N_OUT)
+
+            out["step_loop"][case] = _ab_turns(lambda: step_ms(one_step)["ms"], ab, rounds)
+            print(f"train routes: step loop {case} B={batch}, ms a step: "
+                  f"{json.dumps(out['step_loop'][case])}")
+            del model, step, b
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+        trainer_mod.set_matmul_precision("highest")
+
+    data = tmp / "train_data"
+    write_train_corpus(data, SCAN_MODELS)
+    for case, cfg_name, dtype, ab in (("fp32", "config_3depn_chair.json", "float32", routes),
+                                      ("bf16", "config_3depn_chair.json", "bfloat16", routes),
+                                      ("fast", "config_3depn_chair_fast.json", None,
+                                       fast_routes)):
+        if case == "fast":
+            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+        try:
+            t = _scan_trainer(f"routes_{case}", cfg_name, dtype, "scan", data, tmp, device)
+            res = _scan_ab(t, ab, rounds)
+            if case == "fast":
+                res.update(_fast_extras(t, fast_routes, rounds))
+        finally:
+            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+            trainer_mod.set_matmul_precision("highest")
+        out["scan"][case] = res
+        print(f"train routes: scanned epoch {case}: {json.dumps(res)}")
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scan_ab(t, ab: dict, rounds: int) -> dict:
+    """One Trainer's epoch-1 uniform prefix on the card: ms a step of the
+    step loop and of the scanned epoch (its capture left out) under each
+    route in turns."""
+    from hyperpocket_tpu_torch.train.trainer import _uniform_prefix
+
+    batches, gens = t._collect(t.train_loader, 1)
+    n = _uniform_prefix(batches)
+    ex, mi, gt = t._stacked(batches[:n])
+    points = int(gt.shape[2])
+    fn = t._epoch_scan_fn
+
+    def loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(n):
+            t.train_step(ex[s], None if mi is None else mi[s], gt[s], gens[s], 1.0, points)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    def scan():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(ex, mi, gt, gens[:n], 1.0, points)
+        torch.cuda.synchronize()
+        return (1e3 * (time.perf_counter() - t0) - (fn.capture_ms or 0.0)) / n
+
+    loop(), scan()  # the optimizer's state and the scan's rehearsal off the clock
+    return {"steps": n, "step_loop_ms": _ab_turns(loop, ab, rounds),
+            "scan_ms": _ab_turns(scan, ab, rounds)}
+
+
+def _fast_extras(t, fast_routes: dict, rounds: int) -> dict:
+    """The fast config's scanned epoch on the change: with K8 against the
+    cuBLAS trunk (``HPCD_TRUNK_FUSED_FWD``) in turns; each way's busy share
+    (device time over wall, ``torch.profiler``), the adam_lowp kernel's
+    device ms a step, and the launches of a replay, parent and change."""
+    from hyperpocket_tpu_torch.train.trainer import _uniform_prefix
+
+    batches, gens = t._collect(t.train_loader, 1)
+    n = _uniform_prefix(batches)
+    ex, mi, gt = t._stacked(batches[:n])
+    points = int(gt.shape[2])
+    fn = t._epoch_scan_fn
+
+    def scan():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(ex, mi, gt, gens[:n], 1.0, points)
+        torch.cuda.synchronize()
+        return (1e3 * (time.perf_counter() - t0) - (fn.capture_ms or 0.0)) / n
+
+    @contextlib.contextmanager
+    def trunk(k8: bool):
+        with fast_routes["change"]():
+            if k8:
+                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+            else:
+                os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+            try:
+                yield
+            finally:
+                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+
+    res = {"k8_ms": _ab_turns(scan, {"k8": lambda: trunk(True), "cublas": lambda: trunk(False)},
+                              rounds)}
+    for name, ctx in fast_routes.items():
+        with ctx():
+            wall = statistics.median([scan() for _ in range(3)])
+            kernels = _device_ms_by_kernel(lambda s: fn(ex, mi, gt, gens[:n], 1.0, points), 1)
+            per_replay = fn.launches_per_replay
+        device = sum(kernels.values())
+        res[f"{name}_busy"] = device / n / wall
+        res[f"{name}_device_ms_a_step"] = device / n
+        res[f"{name}_adam_lowp_device_ms_a_step"] = sum(
+            v for k, v in kernels.items() if "adam_lowp_kernel" in k) / n
+        res[f"{name}_launches_per_replay"] = per_replay
+    return res
 
 
 def _device_ms_by_kernel(fn, calls: int) -> dict:
@@ -3088,6 +3530,13 @@ def main(argv=None) -> int:
         scan = drive_scan_epochs(device, Path(tmp))
     print(f"scan epochs: {json.dumps(scan)} on {card}")
     print(f"phase 26 wall s: {time.perf_counter() - t0!r}")
+    t0 = time.perf_counter()
+    adam = adam_lowp_vs_plain(model32, device)
+    k9_graph = k9_replays_as_eager(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        routes = drive_train_routes(device, Path(tmp))
+    print(f"train routes: {json.dumps({'k9_graph': k9_graph, **routes})} on {card}")
+    print(f"phase 27 wall s: {time.perf_counter() - t0!r}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
@@ -3114,10 +3563,13 @@ def main(argv=None) -> int:
         entry("trunk_pool", "trunk_pool.cu", "hyperpocket_tpu/ops/pallas_encoder.py:198",
               sl["launches"], kern["max_abs_err"], kern["times"]["B256_N1024"],
               ms_key="kernel_ms", library_key="bf16_matmul_chain_ms", scan_key="trunk_pooled"),
+        # K1: the train steps under deterministic algorithms (phase 22's one-process
+        # Trainer; by default the card trains through K9)
         *(entry(name, f"{name}.cu", f"hyperpocket_tpu/ops/pallas_nn.py:{line}", launches,
                 nn_kern["errs"][name], nn_kern["times"][name], scan_key=name)
           for name, line, launches in (
-              ("nn_one_direction", 125, fp32["train_launches"]["nn_one_direction"]),
+              ("nn_one_direction", 125,
+               parallel["dp_trainer"]["one_process"]["train_launches"]["nn_one_direction"]),
               ("nn_min_fused", 223, fp32["val_launches"]["nn_min_fused"]))),
         *(entry(name, f"{name}.cu", f"hyperpocket_tpu/ops/pallas_emd.py:{line}", launches,
                 emd_kern["errs"][name], emd_kern["times"]["B512_1024"][name])
@@ -3132,7 +3584,8 @@ def main(argv=None) -> int:
         entry("nn_fused_planes", "nn_fused_planes.cu", "hyperpocket_tpu/ops/pallas_nn.py:386",
               k5["launches"]["nn_fused_planes"], k5["max_abs_err"], k5["times"]["B64_1024x2048"]),
         entry("chamfer_loss_grad", "chamfer_loss_grad.cu", "hyperpocket_tpu/ops/pallas_nn.py:580",
-              k9["launches"], k9["max_abs_err"], k9["times"]["B64_2048x2048"]),
+              fp32["train_launches"]["chamfer_loss_grad"], k9["max_abs_err"],
+              k9["times"]["B64_2048x2048"], scan_key="chamfer_loss_grad"),
         # K10: bf16 (tensor cores) on the bf16 serving path, fp32 (CUDA cores) on the fp32
         # val step's
         entry("decode_batch", "decode_batch_tc.cu", "hyperpocket_tpu/ops/pallas_decoder.py:117",
@@ -3150,6 +3603,10 @@ def main(argv=None) -> int:
               "hyperpocket_tpu/ops/pallas_decoder.py:117",
               k10["wide_model_launches"]["decode_batch_bf16_simt"], k10["small_err"]["bf16_wide"],
               k10["times"][f"bf16_simt_272_B{SERVE_BATCH}"], library_key="chain_ms"),
+        # not a TPU kernel: scale_by_adam_lowp is XLA inside the jitted JAX step;
+        # launches in the fast config's training-CLI run (phase 14)
+        entry("adam_lowp", "adam_lowp.cu", "hyperpocket_tpu/train/optim.py:29", fast["adam_lowp"],
+              adam["max_abs_err"], adam["times"], scan_key="adam_lowp_update"),
     ]
     print(f"SM clock, power, temperature at the end: {clock_line()}")
     print(card)

@@ -1,12 +1,14 @@
 """Point-cloud ops of the port: Chamfer, NN distance, approximate EMD, sampling, decode.
 
 The counterparts of ``hyperpocket_tpu/ops/__init__.py``'s public names, plus
-``chamfer_loss_fused`` and ``decode_batch``. CUDA tensors go to the
+``chamfer_loss_fused``, ``decode_batch`` and ``adam_lowp_update`` (the
+optimizer's pass, ``ops/adam_lowp.py``). CUDA tensors go to the
 hand-written kernels (built at their first launch, not at import), CPU
 tensors to their plain versions. ``launch_counters`` (not a JAX name, so
 not in ``__all__``) lists every kernel wrapper's launch count.
 """
 
+from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
 from hyperpocket_tpu_torch.ops.chamfer import (
     batch_pairwise_sqdist,
     chamfer_loss,
@@ -44,7 +46,7 @@ def launch_counters() -> list[tuple[object, str]]:
     counters = [(k, "launches") for k in (
         trunk_pooled, trunk_pooled_argmax, nn_one_direction, nn_min_fused, nn_fused_planes,
         chamfer_loss_grad, match_cost_fwd_kernel, match_cost_bwd_kernel, head_adam_update,
-        decode_batch)]
+        decode_batch, adam_lowp_update)]
     return [*counters, (decode_batch, "launches_bf16_simt")]
 
 

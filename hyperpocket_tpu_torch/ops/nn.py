@@ -21,12 +21,15 @@ Counterpart of ``hyperpocket_tpu/ops/pallas_nn.py``:
   the backward is ``nn_backward``.
 * ``chamfer_loss_fused``: the same value; under autograd K9 runs once and
   the backward scales the saved gradient fields.
-* ``chamfer_loss_auto``: the training loss's dispatch. fp32 CUDA clouds
-  take the streaming path at any point counts; fp64 (the trajectory-parity
-  mode) takes ``ops/chamfer.py::chamfer_loss``, as in the JAX package. CPU
-  clouds keep the JAX package's gate: fp32 with both point counts
-  multiples of 128 take the streaming path (the plain versions of the
-  kernels), everything else the plain loss.
+* ``chamfer_loss_auto``: the training loss's dispatch, decided by
+  ``chamfer_grad_route``. fp32 CUDA clouds under autograd take K9
+  (``chamfer_loss_fused``), which the H100 runs faster than the streaming
+  value and gradient, unless deterministic algorithms are on (then, and
+  with no gradient needed, the streaming path); fp64 (the
+  trajectory-parity mode) takes ``ops/chamfer.py::chamfer_loss``, as in
+  the JAX package. CPU clouds keep the JAX package's gate: fp32 with both
+  point counts multiples of 128 take the streaming path (the plain
+  versions of the kernels), everything else the plain loss.
 * the metric dispatchers ``nn_min_dists``, ``chamfer_per_cloud_auto``,
   ``directed_hausdorff_auto`` (K3) and ``nn_distance_auto``
   (``nn_distance_pallas``): the matrix forms of ``ops/chamfer.py`` for CPU
@@ -316,7 +319,8 @@ class _ChamferFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ga, gb = ctx.saved_tensors
-        return g * ga, g * gb
+        want_a, want_b = ctx.needs_input_grad
+        return g * ga if want_a else None, g * gb if want_b else None
 
 
 def chamfer_loss_fused(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
@@ -325,7 +329,9 @@ def chamfer_loss_fused(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     With no gradient needed it is ``chamfer_loss_streaming`` (K3). Under
     autograd the forward launches K9 once and keeps both gradient fields;
     the backward multiplies them by the cotangent. The JAX package keeps it
-    off every default path, as the port does.
+    off its training loss (slower than the streaming value and gradient on
+    v5e); on the card ``chamfer_loss_auto`` takes it where
+    ``chamfer_grad_route`` says "k9".
     """
     _check(gts, preds)
     gts, preds = gts.contiguous(), preds.contiguous()
@@ -339,14 +345,63 @@ def pallas_shapes_ok(n: int, m: int) -> bool:
     return n % 128 == 0 and m % 128 == 0
 
 
+def chamfer_grad_route(gts, preds) -> str:
+    """The route ``chamfer_loss_auto`` takes: "k9", "streaming" or "plain".
+
+    Decided from the clouds' device type, dtype, point counts and whether a
+    gradient is needed, before any launch (the arguments may be anything
+    with ``device``, ``dtype``, ``shape`` and ``requires_grad``):
+
+    * "plain" (``ops/chamfer.py::chamfer_loss``): clouds not both fp32
+      (fp64 is the trajectory-parity mode), and CPU clouds whose point
+      counts are not both multiples of 128: the JAX package's gate.
+    * "streaming" (``chamfer_loss_streaming``): other CPU clouds (the
+      kernels' plain versions, as the JAX package's streaming path); CUDA
+      clouds with no gradient needed (K3 once); and CUDA clouds under
+      ``torch.are_deterministic_algorithms_enabled()``, since K9 sums both
+      gradient fields with fp32 ``atomicAdd``s and two runs of one step may
+      differ in the last bits, while the streaming backward's ``index_add_``
+      is deterministic under that setting. This follows the caller's
+      explicit setting; it is no fallback: a K9 that fails to build or
+      launch raises.
+    * "k9" (``chamfer_loss_fused``: one K9 launch a loss, the saved fields
+      scaled in the backward): fp32 CUDA clouds under autograd otherwise.
+      The JAX package keeps K9 off its training loss because it lost on
+      v5e; on the H100 it wins at every shape measured. Value and gradient
+      at B=64 through ``train/losses.py::reconstruction_loss``, ms a call,
+      the two routes in turns (A B B A, twice) in one process on an NVIDIA
+      H100 80GB HBM3 at 700.00 W (``chip_smoke.py`` phase 27):
+
+      ==================  ===========  ====================================
+      points (gt x pred)  K9           K1 twice, or K5, + the K2 backward
+      ==================  ===========  ====================================
+      2048 x 2048         0.299-0.394  0.643-0.876
+      2048 x 1024         0.217-0.404  0.634-0.875
+      ==================  ===========  ====================================
+    """
+    if gts.dtype != torch.float32 or preds.dtype != torch.float32:
+        return "plain"
+    if gts.device.type == "cpu" and preds.device.type == "cpu":
+        return "streaming" if pallas_shapes_ok(gts.shape[1], preds.shape[1]) else "plain"
+    if (torch.is_grad_enabled() and (gts.requires_grad or preds.requires_grad)
+            and not torch.are_deterministic_algorithms_enabled()):
+        return "k9"
+    return "streaming"
+
+
 def chamfer_loss_auto(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
-    """The streaming kernels for fp32 clouds (on the CPU only at 128-aligned
-    counts, the JAX package's gate), else the plain loss."""
-    fp32 = gts.dtype == torch.float32 and preds.dtype == torch.float32
-    on_cpu = gts.device.type == "cpu" and preds.device.type == "cpu"
-    if fp32 and (not on_cpu or pallas_shapes_ok(gts.shape[1], preds.shape[1])):
+    """The training loss's Chamfer sum, through ``chamfer_grad_route``'s
+    route; ``chamfer_loss_auto.route`` keeps the last route taken."""
+    route = chamfer_grad_route(gts, preds)
+    chamfer_loss_auto.route = route
+    if route == "k9":
+        return chamfer_loss_fused(gts, preds)
+    if route == "streaming":
         return chamfer_loss_streaming(gts, preds)
     return chamfer_loss(gts, preds)
+
+
+chamfer_loss_auto.route = None
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,13 @@ each optimizer is the JAX package's optax chain:
   ``scale_by_rms`` divides by ``sqrt(nu + eps)`` (torch's RMSprop by
   ``sqrt(nu) + eps``).
 
-* Adam and AdamW with ``moment_dtype`` (``AdamLowp``) are written here as
-  the JAX package's ``scale_by_adam_lowp``: both moments stored in the
-  narrow dtype, their update computed in the gradient's dtype and rounded
-  on store, the bias correction ``1 - b^count`` in fp32.
+* Adam and AdamW with ``moment_dtype`` (``AdamLowp``) are the JAX
+  package's ``scale_by_adam_lowp``: both moments stored in the narrow
+  dtype, their update computed in the gradient's dtype and rounded on
+  store, the bias correction ``1 - b^count`` in fp32. Each tensor's update
+  is ``ops/adam_lowp.py::adam_lowp_update``: on a card one pass of the
+  kernel ``csrc/adam_lowp.cu`` a tensor, bit-equal to the plain torch
+  arithmetic, which the CPU runs.
 
 Frozen hypernetwork heads are left out of the optimizer, as the reference
 leaves them out of its parameters. Every optimizer here can be captured in
@@ -38,6 +41,7 @@ from typing import Callable, Iterable
 import torch
 
 from hyperpocket_tpu_torch.models.full_model import _DTYPES
+from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
 
 
 def step_count(p: torch.Tensor, value: float = 0.0) -> torch.Tensor:
@@ -117,13 +121,10 @@ class AdamLowp(torch.optim.Optimizer):
         f32 = torch.float32
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            wd, md = group["weight_decay"], group["moment_dtype"]
+            md = group["moment_dtype"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
-                if wd and not group["decoupled"]:
-                    g = g + wd * p
                 state = self.state[p]
                 if not state:
                     state["step"] = step_count(p)
@@ -131,15 +132,13 @@ class AdamLowp(torch.optim.Optimizer):
                     state["nu"] = torch.zeros_like(p, dtype=md)
                 state["step"].add_(1)
                 t = state["step"]
-                mu = state["mu"].copy_(b1 * state["mu"].to(g.dtype) + (1 - b1) * g)
-                nu = state["nu"].copy_(b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g)
                 # fills, not copies from the host: the step stays capturable
                 bc1 = 1 - torch.full((), b1, dtype=f32, device=t.device) ** t
                 bc2 = 1 - torch.full((), b2, dtype=f32, device=t.device) ** t
-                update = (mu.to(f32) / bc1) / (torch.sqrt(nu.to(f32) / bc2) + group["eps"])
-                if wd and group["decoupled"]:
-                    update = update + wd * p
-                p.add_((-group["lr"] * update).to(p.dtype))
+                adam_lowp_update(p, p.grad, state["mu"], state["nu"], bc1, bc2,
+                                 lr=group["lr"], b1=b1, b2=b2, eps=group["eps"],
+                                 weight_decay=group["weight_decay"],
+                                 decoupled=group["decoupled"])
         return loss
 
 

@@ -63,6 +63,7 @@ import torch
 
 from hyperpocket_tpu_torch.models.full_model import _DTYPES, FullModel
 from hyperpocket_tpu_torch.ops.head_adam import adam_scalars, head_adam_update
+from hyperpocket_tpu_torch.ops.nn import chamfer_loss_auto
 from hyperpocket_tpu_torch.parallel import distributed
 from hyperpocket_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -425,6 +426,7 @@ class Trainer:
         # the scanned train epochs and val categories (n_scan > 1) run so far
         self.scan_invocations = 0
         self.val_scan_invocations = 0
+        self._chamfer_route_logged = False
 
         self.train_losses: list = []
         self.val_losses: list = []
@@ -537,12 +539,21 @@ class Trainer:
             self.updates += 1
             rows.append(torch.stack([loss, loss_r, loss_k]))
             latest = (existing, gt, rec)
+            self._log_chamfer_route()
         # one device fetch per epoch
         self.last_step_losses = (torch.stack(rows).cpu().numpy() if rows else np.zeros((0, 3)))
         sums = self.last_step_losses.sum(axis=0) if rows else np.zeros(3)
         if latest is not None:
             latest = (latest[0], latest[1], latest[2].float().cpu().numpy())
         return EpochStats(*(sums / max(len(rows), 1))), latest
+
+    def _log_chamfer_route(self) -> None:
+        """Log, once per Trainer, the Chamfer route its train steps took
+        (``ops/nn.py::chamfer_grad_route``: "k9", "streaming" or "plain")."""
+        if not self._chamfer_route_logged and chamfer_loss_auto.route is not None:
+            self.log.info("training loss: Chamfer route %r (deterministic algorithms %s)",
+                          chamfer_loss_auto.route, torch.are_deterministic_algorithms_enabled())
+            self._chamfer_route_logged = True
 
     def _train_epoch_scan(self, epoch: int) -> tuple[EpochStats, tuple | None]:
         """The epoch's batches collected, the uniform prefix through one
@@ -566,6 +577,7 @@ class Trainer:
                                                         float(epoch), int(gt.shape[1]))
             rows.append(torch.stack([loss, loss_r, loss_k])[None])
         self.updates += len(batches)
+        self._log_chamfer_route()
         # one device fetch per epoch, as in the step loop
         self.last_step_losses = torch.cat(rows).cpu().numpy()
         sums = self.last_step_losses.sum(axis=0)

@@ -1,6 +1,6 @@
 #!/bin/bash
-# Mutation checks of the K4, K5, K8, K9, K10 and K11 CUDA kernels, on a
-# machine with the card.
+# Mutation checks of the K4, K5, K8, K9, K10 and K11 CUDA kernels and of
+# the adam_lowp kernel, on a machine with the card.
 #
 #   bash tests/card_mutants.sh [prefix ...]
 #
@@ -9,8 +9,8 @@
 # Each mutant is a copy of the tree under $TMPDIR with one kernel line edited
 # by sed (the tree itself is never edited). For each, the smoke's phase
 # function (chip_smoke.py::head_adam_vs_plain, kernel_vs_plain,
-# trunk_argmax_vs_plain, nn_fused_vs_plain, chamfer_fused_vs_plain or
-# decode_vs_plain) and the matching card tests of tests/test_torch_cuda.py
+# trunk_argmax_vs_plain, nn_fused_vs_plain, chamfer_fused_vs_plain,
+# decode_vs_plain or adam_lowp_vs_plain) and the matching card tests of tests/test_torch_cuda.py
 # run in the copy; a mutant is caught when the phase fails (SmokeFailure, or
 # a CUDA error: the trunk kernel traps a pipeline wait that lasts seconds)
 # and card tests fail.
@@ -40,6 +40,11 @@
 #                  fragments (rows 8-15 of channels 0-7 and rows 0-7 of 8-15)
 #   k10_tc_round   the bf16 kernel's chain rounding rounds the hidden layers
 #                  as the TPU kernel does (caught by the equal shares)
+#   adam_round     adam_lowp keeps (1 - b1) g unrounded in a bf16 or fp16
+#                  parameter's dtype
+#   adam_fma       adam_lowp contracts p + (-lr u) into one FMA
+#   adam_tail      adam_lowp's vector loop leaves the last n % 4 values
+#   adam_bc        adam_lowp divides nu by bc1 instead of bc2
 cd "$(dirname "$0")/.."
 tmp=${TMPDIR:-/tmp}
 only=" $* "
@@ -67,6 +72,11 @@ try:
     phase(); print("MUTANT SURVIVED the smoke phase")
 except Exception as e:  # SmokeFailure, or a CUDA error (an index left at -1 faults a gather)
     print("MUTANT CAUGHT by the smoke phase:", type(e).__name__, str(e).strip().splitlines()[0])'
+ADAM_PY='import torch, chip_smoke as c
+_, model = c.build_model("float32")
+try:
+    c.adam_lowp_vs_plain(model, torch.device("cuda", 0)); print("MUTANT SURVIVED the smoke phase")
+except c.SmokeFailure as e: print("MUTANT CAUGHT by the smoke phase:", str(e).splitlines()[0][:300])'
 
 mutant () {  # name, source file under csrc/, python check, pytest -k, sed expressions...
   name=$1; file=$2; check=$3; tests=$4; shift 4
@@ -122,3 +132,11 @@ mutant k10_tc_round decode_batch_tc.cu "$PHASE_PY" "decode and chain" \
   's/const float2 b_lo = chain ? make_float2(0.f, 0.f) : bs\[u\]\[0\];/const float2 b_lo = bs[u][0];/' \
   's/const float2 b_hi = chain ? make_float2(0.f, 0.f) : bs\[u\]\[1\];/const float2 b_hi = bs[u][1];/' \
   's/          if (chain) {/          if (false) {/'
+mutant adam_round adam_lowp.cu "$ADAM_PY" adam_lowp \
+  's/rnd<P>(__fmul_rn(g, sc.one_b1))/__fmul_rn(g, sc.one_b1)/'
+mutant adam_fma adam_lowp.cu "$ADAM_PY" adam_lowp \
+  's/p = from_f<P>(__fadd_rn(pf, rnd<P>(__fmul_rn(u, sc.neg_lr))));/p = from_f<P>(fmaf(u, sc.neg_lr, pf));/'
+mutant adam_tail adam_lowp.cu "$ADAM_PY" adam_lowp \
+  's/    done = vecs \* kVec;/    done = n;/'
+mutant adam_bc adam_lowp.cu "$ADAM_PY" adam_lowp \
+  's/__fdiv_rn(to_f(nu), bc2)/__fdiv_rn(to_f(nu), bc1)/'

@@ -324,22 +324,29 @@ def test_metric_dispatchers_launch_kernels_at_any_shape(cuda, shape):
             fn(a.double(), c.double())
 
 
+@pytest.mark.parametrize("deterministic", [False, True])
 @pytest.mark.parametrize("n, m", [(1000, 1000), (1000, 2048), (1024, 2048)])
-def test_chamfer_loss_auto_launches_kernels_at_any_count(cuda, n, m):
-    """fp32 CUDA clouds take K1 twice (N == M) or K5 once (N != M) under
-    grad and K3 without, at counts off the 128 grid; fp64 keeps the plain
+def test_chamfer_loss_auto_launches_kernels_at_any_count(cuda, n, m, deterministic):
+    """fp32 CUDA clouds take K9 once under grad (``chamfer_grad_route``),
+    or under deterministic algorithms K1 twice (N == M) or K5 once (N != M),
+    and K3 without grad, at counts off the 128 grid; fp64 keeps the plain
     chain."""
     from hyperpocket_tpu_torch.ops import nn
 
-    kernels = (nn.nn_one_direction, nn.nn_min_fused, nn.nn_fused_planes)
+    kernels = (nn.nn_one_direction, nn.nn_min_fused, nn.nn_fused_planes, nn.chamfer_loss_grad)
     gts, preds = _points(4, n, 19), _points(4, m, 20).requires_grad_()
     before = [k.launches for k in kernels]
-    loss = nn.chamfer_loss_auto(gts, preds)
-    (grad,) = torch.autograd.grad(loss, preds)
-    with torch.no_grad():
-        value = nn.chamfer_loss_auto(gts, preds)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        loss = nn.chamfer_loss_auto(gts, preds)
+        (grad,) = torch.autograd.grad(loss, preds)
+        with torch.no_grad():
+            value = nn.chamfer_loss_auto(gts, preds)
+    finally:
+        torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
-    want_launches = (2, 1, 0) if n == m else (0, 1, 1)
+    want_launches = ((0, 1, 0, 1) if not deterministic
+                     else (2, 1, 0, 0) if n == m else (0, 1, 1, 0))
     assert tuple(k.launches - n0 for k, n0 in zip(kernels, before)) == want_launches
     want = chamfer_loss(gts.double(), preds.detach().double())
     assert abs(loss.item() - want.item()) <= 1e-5 * want.item()
@@ -1067,10 +1074,12 @@ def test_exported_artifact_serves_on_the_card(cuda, dtype):
 
 def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
     """settings/config_completion.json's model (HyperRec) at full width: a
-    train step launches K1 twice and no K3 or K10, a val step K3 and K10
-    once, and the trunk runs no K4 in fp32."""
+    train step launches K9 once (K1 twice under deterministic algorithms)
+    and no K3 or K10, a val step K3 and K10 once, and the trunk runs no K4
+    in fp32."""
     from hyperpocket_tpu_torch.models.full_model import FullModel
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad
     from hyperpocket_tpu_torch.train import optim, trainer
 
     config = _settings("config_completion.json")
@@ -1083,16 +1092,24 @@ def test_hyperrec_steps_launch_k1_twice_and_k3(cuda):
     val_step = trainer.make_val_step(model, float(tr["loss_coef"]))
     partial, gt = _points(6, 2048, seed=10), _points(6, 2048, seed=11)
     gen = torch.Generator(device=cuda).manual_seed(12)
-    kernels = (nn_one_direction, nn_min_fused, trunk_pooled, decode_batch)
+    kernels = (nn_one_direction, chamfer_loss_grad, nn_min_fused, trunk_pooled, decode_batch)
     before = [k.launches for k in kernels]
     loss, loss_r, loss_k, rec = train_step(partial, None, gt, gen, 1.0, 2048)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 0, 0]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0, 0, 0]
     assert torch.isfinite(loss) and rec.shape == (6, 2048, 3) and loss_k.item() == 0.0
+    before = [k.launches for k in kernels]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        train_step(partial, None, gt, gen, 1.0, 2048)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 0, 0, 0]
     before = [k.launches for k in kernels]
     val_loss, val_rec = val_step(partial[:4], None, gt[:4], gen, 1.0, 2048)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 1, 0, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 0, 1]
     assert torch.isfinite(val_loss) and val_rec.shape == (4, 2048, 3)
 
 
@@ -1577,3 +1594,176 @@ def test_infer_writes_the_plys_of_the_eager_forward(cuda, tmp_path, monkeypatch)
     monkeypatch.setattr(GraphCache, "__call__", call_eagerly)
     eager = written("eager")
     assert len(graphed) == 18 and graphed == eager
+
+
+# ---------------------------------------------------------------------------
+# The training path's dispatch: the Chamfer route (K9 by default, the
+# streaming value and gradient under deterministic algorithms) and the
+# bf16-moment Adam's one pass a tensor (ops/adam_lowp.py), bit for bit with
+# its plain version.
+
+ADAM_SHAPES = [(19, 64), (1001,), (3, 5, 7), (4,), (512, 129)]  # vector body and tails
+
+
+def _adam_run(param_dtype, moment_dtype: str, kind: str, wd: float, plain: bool,
+              graphed: bool = False, seed: int = 0):
+    """Three AdamLowp steps on ADAM_SHAPES from one seed: (p, mu, nu) a tensor."""
+    from hyperpocket_tpu_torch.ops import adam_lowp
+    from hyperpocket_tpu_torch.train import optim
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = [torch.nn.Parameter((torch.randn(s, generator=g, device="cuda") * 0.02)
+                                 .to(param_dtype)) for s in ADAM_SHAPES]
+    grads = [[(torch.randn(s, generator=g, device="cuda")
+               * 10.0 ** torch.randint(-6, 1, s, generator=g, device="cuda")).to(param_dtype)
+              for s in ADAM_SHAPES] for _ in range(3)]
+    opt = optim.make_optimizer({"type": kind, "hyperparams": {
+        "lr": 1e-3, "weight_decay": wd, "moment_dtype": moment_dtype}}, params)
+    own = optim.adam_lowp_update
+    if plain:
+        optim.adam_lowp_update = adam_lowp.adam_lowp_update_reference
+    try:
+        for i, step_grads in enumerate(grads):
+            for p, grad in zip(params, step_grads):
+                if p.grad is None:
+                    p.grad = grad.clone()
+                else:
+                    p.grad.copy_(grad)
+            if graphed and i == 1:
+                graph = torch.cuda.CUDAGraph()
+                torch.cuda.synchronize()
+                with torch.cuda.graph(graph):
+                    opt.step()
+            if graphed and i >= 1:
+                graph.replay()
+            else:
+                opt.step()
+    finally:
+        optim.adam_lowp_update = own
+    torch.cuda.synchronize()
+    return [(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"]) for p in params]
+
+
+@pytest.mark.parametrize("kind", ["Adam", "AdamW"])
+@pytest.mark.parametrize("moment_dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_adam_lowp_kernel_matches_plain(cuda, param_dtype, moment_dtype, kind):
+    """One launch a tensor and step; parameters and both moments bit-equal
+    to the plain torch arithmetic on the card over three steps."""
+    from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
+
+    before = adam_lowp_update.launches
+    got = _adam_run(param_dtype, moment_dtype, kind, 0.05, plain=False, seed=3)
+    assert adam_lowp_update.launches == before + 3 * len(ADAM_SHAPES)
+    want = _adam_run(param_dtype, moment_dtype, kind, 0.05, plain=True, seed=3)
+    assert adam_lowp_update.launches == before + 3 * len(ADAM_SHAPES)
+    for g, w in zip(got, want):
+        assert g[1].dtype == getattr(torch, moment_dtype)
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.parametrize("moment_dtype", ["bfloat16", "float16"])
+def test_adam_lowp_captured_step_replays_as_eager(cuda, moment_dtype):
+    """AdamLowp's step captured once (bc1 and bc2 read through pointers, the
+    count on the device) and replayed twice: the eager steps' bits."""
+    got = _adam_run(torch.float32, moment_dtype, "Adam", 0.0, plain=False, graphed=True, seed=4)
+    want = _adam_run(torch.float32, moment_dtype, "Adam", 0.0, plain=False, seed=4)
+    plain = _adam_run(torch.float32, moment_dtype, "Adam", 0.0, plain=True, seed=4)
+    for g, w, q in zip(got, want, plain):
+        assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(g, w, q))
+
+
+def test_adam_lowp_rejects_what_it_cannot_take(cuda):
+    from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
+
+    p = torch.zeros(8, device=cuda)
+    mu = torch.zeros(8, device=cuda, dtype=torch.bfloat16)
+    bc = torch.ones((), device=cuda)
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    with pytest.raises(ValueError, match="float64"):
+        adam_lowp_update(p.double(), p.double(), mu, mu.clone(), bc, bc, **kw)
+    with pytest.raises(ValueError, match="bfloat16"):
+        adam_lowp_update(p, p.clone(), mu, mu.float(), bc, bc, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        adam_lowp_update(p, p.cpu(), mu, mu.clone(), bc, bc, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        q = torch.zeros(16, device=cuda)[::2]
+        adam_lowp_update(q, q.clone(), mu, mu.clone(), bc, bc, **kw)
+
+
+def _chair_step(dtype: str, batch: int = 8):
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    config = _settings("config_3depn_chair.json")
+    config["full_model"]["compute_dtype"] = dtype
+    model = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(31)).cuda()
+    opt = optim.make_optimizer(config["training"]["optimizer"], optim.trainable_parameters(model))
+    step = trainer.make_train_step(model, opt, float(config["training"]["loss_coef"]))
+    data = [_points(batch, n, seed=s) for n, s in ((1024, 32), (1024, 33), (2048, 34))]
+    return model, step, data
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_launches_on_each_route(cuda, dtype, deterministic):
+    """A train step at the chair's shapes launches K9 once and K1 never, or
+    under deterministic algorithms K1 twice (the streaming route) and K9
+    never; the route is recorded."""
+    from hyperpocket_tpu_torch.ops import nn
+
+    model, step, (existing, missing, gt) = _chair_step(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    before = _kernel_counts()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        loss, *_ = step(existing, missing, gt, gen, 1.0, 2048)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    launched = _launched(before)
+    want = ({"nn_one_direction.launches": 2} if deterministic
+            else {"chamfer_loss_grad.launches": 1})
+    assert {k: launched.get(k, 0) for k in ("nn_one_direction.launches",
+                                            "chamfer_loss_grad.launches")} == {
+        "nn_one_direction.launches": 0, "chamfer_loss_grad.launches": 0, **want}
+    assert nn.chamfer_loss_auto.route == ("streaming" if deterministic else "k9")
+    assert bool(torch.isfinite(loss))
+
+
+def test_k9_route_first_step_gradients_match_streaming(cuda, monkeypatch):
+    """The first step's gradients through K9 and through the streaming route
+    from the same weights and draws: every trainable gradient within 1e-3
+    relative L2 (the phase-8 gate), and the loss's gradient at the
+    reconstruction within 1e-5 of its scale (both take the first argmins of
+    the same distances, so no near-tie flips them; atomic sums part the
+    last bits)."""
+    from hyperpocket_tpu_torch.ops import nn
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+    from hyperpocket_tpu_torch.train import optim
+    from hyperpocket_tpu_torch.train.losses import kld_loss, reconstruction_loss
+
+    model, _, (existing, missing, gt) = _chair_step("float32", batch=16)
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    balls = generate_target_network_input_batch(model.target_network_input, gen, 1.0, 16, 2048)
+    eps = torch.randn((16, model.get_noise_size()), generator=gen, device=cuda)
+    params = optim.trainable_parameters(model)
+    own = nn.chamfer_grad_route
+
+    def grads(route):
+        monkeypatch.setattr(nn, "chamfer_grad_route",
+                            own if route == "k9" else
+                            lambda g, p: "streaming" if own(g, p) == "k9" else own(g, p))
+        model.zero_grad(set_to_none=True)
+        rec, mu, sigma = model.apply(existing, missing, None, 1.0, num_output_points=2048,
+                                     training=True, vae_eps=eps, ball_points=balls)
+        rec.retain_grad()
+        (reconstruction_loss(gt, rec, 0.05) + kld_loss(mu, sigma, 16)).backward()
+        assert nn.chamfer_loss_auto.route == route
+        return rec.grad.clone(), [p.grad.clone() for p in params if p.grad is not None]
+
+    rec_k9, k9 = grads("k9")
+    rec_st, st = grads("streaming")
+    assert (rec_k9 - rec_st).abs().max().item() <= 1e-5 * rec_st.abs().max().item()
+    flat_k9, flat_st = torch.cat([g.flatten() for g in k9]), torch.cat([g.flatten() for g in st])
+    assert ((flat_k9 - flat_st).norm() / flat_st.norm()).item() <= 1e-3

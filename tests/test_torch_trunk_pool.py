@@ -149,7 +149,7 @@ def test_build_failure_raises(tmp_path):
 
 def test_build_hash_covers_sources_and_flags(monkeypatch, tmp_path):
     assert [p.name for p in _build.sources()] == [
-        "chamfer_loss_grad.cu", "decode_batch.cu", "decode_batch_tc.cu", "emd_match_cost.cu",
+        "adam_lowp.cu", "chamfer_loss_grad.cu", "decode_batch.cu", "decode_batch_tc.cu", "emd_match_cost.cu",
         "emd_match_cost_grad.cu", "head_adam.cu", "nn_fused_planes.cu", "nn_min_fused.cu",
         "nn_one_direction.cu", "trunk_pool.cu"]
     base = _build.source_hash()
