@@ -93,6 +93,15 @@ class MissingShapeNetDataset:
     def __len__(self) -> int:
         return len(self.names) * self.num_samples
 
+    @property
+    def items_fixed(self) -> bool:
+        """Whether an item is a pure function of its index over cached
+        arrays (``cache``, no random rotation, not the resampled gen-test
+        split), so the loader may keep the corpus on the device
+        (``data/loader.py``)."""
+        return (self._cache is not None and not self.is_random_rotated
+                and not (self.is_gen and self.split == "test"))
+
     def _load(self, path: str) -> np.ndarray:
         if self._cache is None:
             return load_ply(path)

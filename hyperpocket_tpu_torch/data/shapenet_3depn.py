@@ -161,6 +161,13 @@ class ShapeNet3DEPNDataset:
                 ]
             self.num_samples = num_samples
 
+    @property
+    def items_fixed(self) -> bool:
+        """Whether an item is a pure function of its index over cached
+        arrays (train and val with ``cache``), so the loader may keep the
+        corpus on the device (``data/loader.py``)."""
+        return self._cache is not None and self.split != "test"
+
     def __len__(self) -> int:
         if self.split == "test":
             return len(self.shape_names)

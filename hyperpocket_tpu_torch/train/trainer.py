@@ -44,6 +44,13 @@ As in the JAX package, ``injection_provider`` runs the step loop, an epoch
 of fewer than two uniform batches is not scanned, and ``scan_invocations``
 and ``val_scan_invocations`` count the scanned epochs and categories.
 
+The loaders get the Trainer's device: where a dataset's items are fixed (a
+cached corpus, ``data/loader.py``'s resident route) the corpus lives on the
+device and each epoch's batches are gathered there, the scanned prefix as
+the rows of one stack that ``_stacked`` takes as it is; otherwise batches
+are host arrays, uploaded as before. Either way the batches, draws and
+trajectory are the same, and samples for plots come back as host arrays.
+
 Under a profiler (``training.profile``, ``utils/profiling.py``) an epoch
 is the span ``trainer.train_epoch`` or ``trainer.val_epoch`` over
 ``trainer.collect``, ``trainer.upload``, ``trainer.tail_step`` and
@@ -310,6 +317,24 @@ def _uniform_prefix(batches: list) -> int:
     return n
 
 
+def _stack_of(rows: list[torch.Tensor]) -> torch.Tensor:
+    """``rows`` stacked (S, ...): the leading rows of the tensor they are
+    views of, as it is, where they are its rows 0..S-1 in order (the resident
+    loader's gathered prefix); otherwise a stack on their device."""
+    base = rows[0]._base
+    if base is not None and base.dim() == rows[0].dim() + 1 and len(rows) <= base.shape[0]:
+        stack = base[:len(rows)]
+        if all(r.data_ptr() == s.data_ptr() and r.shape == s.shape and r.stride() == s.stride()
+               for r, s in zip(rows, stack.unbind())):
+            return stack
+    return torch.stack(rows)
+
+
+def _host(a):
+    """A loader's array or tensor as a host numpy array (samples for plots)."""
+    return a.cpu().numpy() if torch.is_tensor(a) else a
+
+
 @dataclass
 class EpochStats:
     loss_all: float
@@ -394,14 +419,15 @@ class Trainer:
         self.train_loader = BatchLoader(
             self.train_dataset, tcfg.get("batch_size", 8), shuffle=tcfg.get("shuffle", True),
             drop_last=tcfg.get("drop_last", True), num_workers=tcfg.get("num_workers", 8),
-            seed=seed, process_shard=shard)
+            seed=seed, process_shard=shard, device=self.device)
         for cat, ds in self.val_dataset_dict.items():
             if len(ds) == 0:
                 self.log.info("val category %s: no items in split, skipped", cat)
         self.val_loaders = {
             cat: BatchLoader(ds, vcfg.get("batch_size", 8), shuffle=vcfg.get("shuffle", False),
                              drop_last=vcfg.get("drop_last", False),
-                             num_workers=vcfg.get("num_workers", 8), seed=seed + 1)
+                             num_workers=vcfg.get("num_workers", 8), seed=seed + 1,
+                             device=self.device)
             for cat, ds in self.val_dataset_dict.items() if len(ds) > 0
         }
         self.profile_cfg = tr.get("profile", {})
@@ -497,11 +523,16 @@ class Trainer:
         self.log.info("compute_dtype switched to %s at epoch %d", sw_dtype, epoch)
 
     def _to_device(self, a) -> torch.Tensor:
+        """``a`` on the device; a tensor already there (the resident
+        loader's) as it is."""
+        if torch.is_tensor(a):
+            return a.to(self.device)
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def _prep_missing(self, missing):
         """HyperRec and scalar placeholders (Completion3D) drop missing."""
-        if not self.uses_missing or not isinstance(missing, np.ndarray) or missing.ndim != 3:
+        if (not self.uses_missing or not isinstance(missing, (np.ndarray, torch.Tensor))
+                or missing.ndim != 3):
             return None
         return missing
 
@@ -522,11 +553,16 @@ class Trainer:
         return batches, generators
 
     def _stacked(self, batches: list) -> tuple:
-        """Batches stacked (S, B, ...) on the device in one upload."""
+        """Batches stacked (S, B, ...) on the device: host arrays in one
+        upload, the resident loader's batches as the stack they are rows of."""
         use_missing = batches[0][1] is not None
         cols = [0, 1, 2] if use_missing else [0, 2]
         with profiling.span("trainer.upload"):
-            dev = upload_stacked([[b[i] for b in batches] for i in cols], self.device)
+            parts = [[b[i] for b in batches] for i in cols]
+            if torch.is_tensor(parts[0][0]):
+                dev = [_stack_of(p) for p in parts]
+            else:
+                dev = upload_stacked(parts, self.device)
         return dev[0], dev[1] if use_missing else None, dev[-1]
 
     # ------------------------------------------------------------------
@@ -558,7 +594,7 @@ class Trainer:
             self.last_step_losses = (torch.stack(rows).cpu().numpy() if rows
                                      else np.zeros((0, 3)))
             if latest is not None:
-                latest = (latest[0], latest[1], latest[2].float().cpu().numpy())
+                latest = (_host(latest[0]), _host(latest[1]), latest[2].float().cpu().numpy())
         sums = self.last_step_losses.sum(axis=0) if rows else np.zeros(3)
         return EpochStats(*(sums / max(len(rows), 1))), latest
 
@@ -597,7 +633,8 @@ class Trainer:
         # one device fetch per epoch, as in the step loop
         with profiling.span("trainer.fetch"):
             self.last_step_losses = torch.cat(rows).cpu().numpy()
-            latest = (batches[-1][0], batches[-1][2], rec.float().cpu().numpy())
+            latest = (_host(batches[-1][0]), _host(batches[-1][2]),
+                      rec.float().cpu().numpy())
         sums = self.last_step_losses.sum(axis=0)
         return EpochStats(*(sums / len(batches))), latest
 
@@ -623,7 +660,7 @@ class Trainer:
             with profiling.span("trainer.fetch"):
                 total = float(torch.stack(losses).sum()) if losses else 0.0
                 if last is not None:
-                    last = (last[0], last[1], last[2][0].float().cpu().numpy())
+                    last = (_host(last[0]), _host(last[1]), last[2][0].float().cpu().numpy())
             val_losses[cat] = np.array([total / max(len(losses), 1)])
             val_samples[cat] = last
         total = sum(val_losses.values()) / len(val_losses) if val_losses else np.array([0.0])
@@ -656,9 +693,10 @@ class Trainer:
                     losses.append(loss[None])
             with profiling.span("trainer.fetch"):
                 total = float(torch.cat(losses).sum())
-                sample = rec[0].float().cpu().numpy()
+                sample = (_host(batches[-1][0][0]), _host(batches[-1][2][0]),
+                          rec[0].float().cpu().numpy())
             val_losses[cat] = np.array([total / len(batches)])
-            val_samples[cat] = (batches[-1][0][0], batches[-1][2][0], sample)
+            val_samples[cat] = sample
         total = sum(val_losses.values()) / len(val_losses) if val_losses else np.array([0.0])
         val_losses["total"] = total
         return val_losses, val_samples

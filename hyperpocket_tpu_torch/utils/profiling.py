@@ -41,7 +41,12 @@ reads each):
 * loader (``data/loader.py``): ``loader.wait``, the consumer blocked on the
   prefetch queue; the producer thread counts ``loader.items`` (seconds in
   the items' ``__getitem__``, count = items) and ``loader.collate`` (count
-  = batches);
+  = batches). On the resident route (a cached corpus kept on the device)
+  ``loader.wait`` is the consumer's receipt of a batch, ``loader.items``
+  the items gathered (seconds: the index upload and the gathers),
+  ``loader.collate`` the batches assembled, and ``loader.resident`` counts
+  the epochs served from the corpus (seconds: its build, on the epoch that
+  builds it);
 * epoch graphs (``train/epoch_scan.py``): ``scan.rehearse``,
   ``scan.capture``, and a step's ``scan.fill`` (its batch and draws into the
   static buffers) and ``scan.replay``.

@@ -7,7 +7,10 @@ sit in the exported Chrome trace on the calling thread, nested as the
 layers call each other, and the totals count the calls, epochs, batches
 and items run. The loader's producer thread, which the profiler does not
 record, counts its items and collates only when the consumer records, and
-a loader error still reaches the consumer.
+a loader error still reaches the consumer. On a cached 3D-EPN tree the
+loaders take the resident route (``data/loader.py``) and count
+``loader.resident`` once a loader an epoch, beside the items, batches and
+receipts that the benchmark's loader readers find.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from hyperpocket_tpu_torch.serving import make_serving_fn
 from hyperpocket_tpu_torch.train.trainer import Trainer
 from hyperpocket_tpu_torch.utils import profiling
 from tests.test_data import make_synthetic_shapenet
+from tests.test_torch_loader_resident import make_3depn_slices, tree_3depn_config
 from tests.test_train_integration import make_config
 
 B, N_EXIST, N_OUT, ZDIM = 2, 32, 64, 16
@@ -191,6 +195,39 @@ def test_the_training_profile_trace_holds_the_spans_and_the_log_their_totals(
     spans = [line for line in logged if line.startswith("span ")]
     assert "span trainer.train_epoch: 1" in " ".join(spans)
     assert len(spans) == len(profiling.totals())
+
+
+@pytest.fixture(scope="module")
+def cached_config(tmp_path_factory):
+    """A cached 3D-EPN tree of 10 items: 2 train batches of 4 (drop_last),
+    val batches of 4, 4 and 2; its loaders take the resident route."""
+    root = tmp_path_factory.mktemp("epn")
+    make_3depn_slices(root)
+    return tree_3depn_config(root, tmp_path_factory.mktemp("results_epn"), True, "scan")
+
+
+def test_a_cached_corpus_counts_the_resident_loader_for_the_benchmark_readers(cached_config):
+    from benchmark import harness
+
+    epochs = 2
+    with profile(activities=[ProfilerActivity.CPU]):
+        t = _epochs(cached_config, epochs)
+    assert t.train_loader.resident and all(v.resident for v in t.val_loaders.values())
+    got = {k: n for k, (n, _) in profiling.totals().items()}
+    seconds = {k: s for k, (_, s) in profiling.totals().items()}
+    batches = 2 + 3
+    assert {k: got[k] for k in ("loader.resident", "loader.items", "loader.collate",
+                                "loader.wait", "trainer.collect", "trainer.train_epoch")} == {
+        "loader.resident": 2 * epochs, "loader.items": (8 + 10) * epochs,
+        "loader.collate": batches * epochs, "loader.wait": batches * epochs,
+        "trainer.collect": 2 * epochs, "trainer.train_epoch": epochs}
+    assert seconds["loader.resident"] > 0  # the builds, on the first epoch
+    assert seconds["loader.wait"] <= seconds["trainer.collect"]
+    for name in ("train.collect_ms_per_epoch", "train.loader_wait_ms_per_epoch",
+                 "train.loader_busy_ms_per_epoch"):
+        value = harness.load_module(harness.HERE / "metrics" / f"{name}.py").read(
+            None, {"kind": "train"})
+        assert value is not None and value > 0, name
 
 
 class _Items:
