@@ -112,8 +112,8 @@ Phases, each fatal on any error:
    (128 items) the smoke writes, then ``cli.main`` in training mode (or, where
    matplotlib is missing, ``Trainer.run(plot_samples=False)``) for
    ``config_3depn_chair.json`` (fp32) and ``config_3depn_chair_fast.json``
-   (bf16, bf16 Adam moments, ``compute_dtype_switch`` at epoch 1,
-   ``HPCD_TRUNK_FUSED_FWD=1``), 2 epochs each, then a relaunch with max_epoch
+   (bf16, bf16 Adam moments, ``compute_dtype_switch`` at epoch 1, K8 with
+   no variable set), 2 epochs each, then a relaunch with max_epoch
    3 that must resume at epoch 3; files written, epoch times and ms per step,
    launches (K9 once a train step, K3 once a val batch, K8 twice a bf16 train
    step, K4 twice a bf16 val batch, K10 once per inference forward, and in
@@ -221,8 +221,9 @@ Phases, each fatal on any error:
    at B=64 on a 130-chair x 4-half 3D-EPN corpus the smoke writes (8
    uniform train steps and a ragged one of 8 an epoch, ``drop_last``
    false; val at B=60, 8 uniform batches and one of 40), in fp32, bf16 and
-   the fast config with ``HPCD_TRUNK_FUSED_FWD=1`` (K8; its dtype switch at
-   epoch 1, so epoch 2 recaptures in fp32), 2 epochs and their val epochs
+   the fast config (both bf16 cases train through K8, the card's route; the
+   fast config's dtype switch at epoch 1, so epoch 2 recaptures in fp32),
+   2 epochs and their val epochs
    each, with deterministic algorithms (the streaming Chamfer, K1 twice a
    step): loss rows, val losses and parameters bit-equal to the step
    loop's; 2 scanned epochs and 2 scanned val categories, 16 + 16 replays,
@@ -1530,8 +1531,8 @@ def drive_cli_training(device, tmp: Path) -> dict:
     Overrides: ``dataset.path`` (the corpus above), ``results_root``,
     ``training.max_epoch`` 2, ``min_save_epoch`` 0 and
     ``state_save_frequency`` 1 (so that 2 epochs save), and for the fast
-    config ``compute_dtype_switch.epoch`` 1 (epoch 2 crosses to fp32) and
-    ``HPCD_TRUNK_FUSED_FWD=1`` for its runs only. A relaunch with
+    config ``compute_dtype_switch.epoch`` 1 (epoch 2 crosses to fp32); its
+    bf16 epoch takes K8 with no variable set (``trunk_grad_route``). A relaunch with
     ``max_epoch`` 3 must resume at epoch 3. The model is never cut.
     """
     import importlib.util
@@ -1586,20 +1587,15 @@ def drive_cli_training(device, tmp: Path) -> dict:
                 for k in kernels.values():
                     k.launches = 0
                 epoch_s.clear()
-                if fused:
-                    os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
-                try:
-                    t = time.perf_counter()
-                    with inference_forwards() as forwards:
-                        if plots:
-                            trainer = cli.main(config, device=device)
-                        else:
-                            trainer = trainer_mod.Trainer(config, device=device)
-                            trainer.run(plot_samples=False)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t
-                finally:
-                    os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
+                t = time.perf_counter()
+                with inference_forwards() as forwards:
+                    if plots:
+                        trainer = cli.main(config, device=device)
+                    else:
+                        trainer = trainer_mod.Trainer(config, device=device)
+                        trainer.run(plot_samples=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
                 launches = {name: k.launches for name, k in kernels.items()}
                 run = {"max_epoch": max_epoch, "start_epoch": trainer.start_epoch, "wall_s": wall,
                        "epochs": [{"epoch": e, "s": s_, "steps": n, "ms_per_step": 1e3 * s_ / n}
@@ -2853,8 +2849,6 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
              ("bf16_k8", "config_3depn_chair_fast.json", None, True))
     for name, cfg_name, dtype, k8 in cases:
         t0 = time.perf_counter()
-        if k8:
-            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
         try:
             trainers, runs = {}, {}
             for mode in ("step", "scan"):
@@ -2893,12 +2887,12 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
             want_step = {"nn_one_direction": 2 * 2 * train_batches,
                          "nn_min_fused": 2 * val_batches, "decode_batch": 2 * val_batches,
                          "trunk_pooled": 2 * val_batches * bf16_epochs,
-                         "trunk_pooled_argmax": 2 * train_batches * bf16_epochs * k8,
+                         "trunk_pooled_argmax": 2 * train_batches * bf16_epochs,
                          "adam_lowp_update": 2 * train_batches * tensors}
             want_step = {k: v for k, v in want_step.items() if v}
             rehearsal = {"nn_one_direction": 2 * n_dtypes, "nn_min_fused": n_dtypes,
                          "decode_batch": n_dtypes, "trunk_pooled": 2 * bool(bf16_epochs),
-                         "trunk_pooled_argmax": 2 * bool(bf16_epochs) * k8,
+                         "trunk_pooled_argmax": 2 * bool(bf16_epochs),
                          "adam_lowp_update": tensors * n_dtypes}
             want_scan = {k: v + rehearsal[k] for k, v in want_step.items()}
             summary = {k: v for k, v in scan.items() if k not in ("rows", "params")}
@@ -2939,7 +2933,6 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
             summary["timing"] = _epoch_timings(trainers["step"], trainers["scan"], 3)
             print(f"scan {name} timing: {json.dumps(summary['timing'])}")
         finally:
-            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
             # the fast config's matmul_precision "high" turned TF32 on for the process
             from hyperpocket_tpu_torch.train.trainer import set_matmul_precision
 
@@ -2991,6 +2984,23 @@ def adam_route(route: str):
         yield
     finally:
         optim.adam_lowp_update = own
+
+
+@contextlib.contextmanager
+def trunk_route(route: str):
+    """The encoder's training trunk inside the block: "k8" is
+    ``trunk_grad_route``'s own on the card; "sparse" sends its K8 cases to
+    ``_ConvPooledSparse`` (the cuBLAS bf16 chain + ``torch.max``), the
+    route the card trained on before K8 became its default."""
+    from hyperpocket_tpu_torch.models import encoder
+
+    own = encoder.trunk_grad_route
+    if route == "sparse":
+        encoder.trunk_grad_route = lambda x: "sparse" if own(x) == "k8" else own(x)
+    try:
+        yield
+    finally:
+        encoder.trunk_grad_route = own
 
 
 def _ab_turns(measure, routes: dict, rounds: int = 2) -> dict:
@@ -3055,7 +3065,7 @@ def adam_lowp_vs_plain(model32, device) -> dict:
                         p.grad.copy_(g)
                     graph.replay()
         torch.cuda.synchronize()
-        return [(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"]) for p in params]
+        return [(p.detach(), opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]) for p in params]
 
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [(dt, md, kind, 1e-2, False) for dt in (f32, bf16, f16) for md in ("bfloat16",
@@ -3099,7 +3109,8 @@ def adam_lowp_vs_plain(model32, device) -> dict:
 
     def updates(update):
         for p, st in zip(params, states):
-            update(p, p.grad, st["mu"], st["nu"], bc1, bc2, lr=lr, b1=0.9, b2=0.999, eps=1e-8)
+            update(p, p.grad, st["exp_avg"], st["exp_avg_sq"], bc1, bc2, lr=lr, b1=0.9, b2=0.999,
+                   eps=1e-8)
 
     values = out["values"]
     slow = 60_000_000  # ~30 ms: longer than queueing a step's ~900 plain launches
@@ -3213,16 +3224,11 @@ def drive_train_routes(device, tmp: Path, route_ctx=train_route, adam_ctx=adam_r
         out["loss"][name] = _ab_turns(lambda: cuda_ms(value_and_grad, windows=3), routes, rounds)
         print(f"train routes: Chamfer value and gradient B={TRAIN_BATCH} {name}, ms: "
               f"{json.dumps(out['loss'][name])}")
-    os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"  # the fast config's recipe: K8 in training
     try:
         for case, cfg, dtype, ab in (("fp32", CONFIG, "float32", routes),
                                      ("bf16", CONFIG, "bfloat16", routes),
                                      ("fast", FAST_CONFIG, "bfloat16", fast_routes),
                                      ("hyperrec", COMPLETION_CONFIG, "float32", routes)):
-            if case != "fast":
-                os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
-            else:
-                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
             model, step = _route_model(cfg, dtype, SEED + 51, device)
             batch = 66 if case == "hyperrec" else TRAIN_BATCH
             b = train_batch(model, batch, SEED + 52, device)
@@ -3238,7 +3244,6 @@ def drive_train_routes(device, tmp: Path, route_ctx=train_route, adam_ctx=adam_r
             del model, step, b
             torch.cuda.empty_cache()
     finally:
-        os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
         trainer_mod.set_matmul_precision("highest")
 
     data = tmp / "train_data"
@@ -3247,15 +3252,12 @@ def drive_train_routes(device, tmp: Path, route_ctx=train_route, adam_ctx=adam_r
                                       ("bf16", "config_3depn_chair.json", "bfloat16", routes),
                                       ("fast", "config_3depn_chair_fast.json", None,
                                        fast_routes)):
-        if case == "fast":
-            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
         try:
             t = _scan_trainer(f"routes_{case}", cfg_name, dtype, "scan", data, tmp, device)
             res = _scan_ab(t, ab, rounds)
             if case == "fast":
                 res.update(_fast_extras(t, fast_routes, rounds))
         finally:
-            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
             trainer_mod.set_matmul_precision("highest")
         out["scan"][case] = res
         print(f"train routes: scanned epoch {case}: {json.dumps(res)}")
@@ -3298,7 +3300,7 @@ def _scan_ab(t, ab: dict, rounds: int) -> dict:
 
 def _fast_extras(t, fast_routes: dict, rounds: int) -> dict:
     """The fast config's scanned epoch on the change: with K8 against the
-    cuBLAS trunk (``HPCD_TRUNK_FUSED_FWD``) in turns; each way's busy share
+    cuBLAS trunk (``trunk_route``) in turns; each way's busy share
     (device time over wall, ``torch.profiler``), the adam_lowp kernel's
     device ms a step, and the launches of a replay, parent and change."""
     from hyperpocket_tpu_torch.train.trainer import _uniform_prefix
@@ -3318,15 +3320,8 @@ def _fast_extras(t, fast_routes: dict, rounds: int) -> dict:
 
     @contextlib.contextmanager
     def trunk(k8: bool):
-        with fast_routes["change"]():
-            if k8:
-                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
-            else:
-                os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
-            try:
-                yield
-            finally:
-                os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
+        with fast_routes["change"](), trunk_route("k8" if k8 else "sparse"):
+            yield
 
     res = {"k8_ms": _ab_turns(scan, {"k8": lambda: trunk(True), "cublas": lambda: trunk(False)},
                               rounds)}
@@ -3486,7 +3481,8 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
         del f
 
     tr = config["training"]
-    # bf16 also with K8 (HPCD_TRUNK_FUSED_FWD=1) and with K11 (the fused head step)
+    # bf16 with the cuBLAS trunk, with K8 (the card's route) and with K11 (the fused
+    # head step)
     for name, dtype, fused_fwd, fused_head in (
             ("fp32", "float32", False, False), ("bf16", "bfloat16", False, False),
             ("bf16_fused_fwd", "bfloat16", True, False),
@@ -3508,13 +3504,9 @@ def profile(config: dict, model, model32, device, path: Path, calls: int = 5) ->
         def run(s):
             return step(batch["existing"], batch["missing"], batch["gt"], gen, 1.0, N_OUT)
 
-        if fused_fwd:
-            os.environ["HPCD_TRUNK_FUSED_FWD"] = "1"
-        try:
+        with trunk_route("k8" if fused_fwd else "sparse"):
             wall_ms = step_ms(run, iters=10, windows=1)["ms"]
             record(f"train_step_{name}_B{TRAIN_BATCH}", run, wall_ms, 3)
-        finally:
-            os.environ.pop("HPCD_TRUNK_FUSED_FWD", None)
         del m, opt, step
         torch.cuda.empty_cache()
     # one 512-pair CD + EMD dispatch of evaluate_generativity at N=M=1024

@@ -8,14 +8,19 @@ head whose output is log-sigma. ReLU is plain everywhere: the configs'
 
 Inference (``fast=True``) sends the trunk to the fused kernel K4
 (``ops/trunk_pool.py::trunk_pooled``) under the JAX package's gate: bf16
-input with N a multiple of 8. Otherwise a cloud of at least 2 x C_out
-points (1024) runs ``_ConvPooledSparse``, whose backward recomputes only the
-pool's argmax rows, and a smaller cloud the plain matmul chain and a max
-over points. With ``HPCD_TRUNK_FUSED_FWD=1`` in the environment (the JAX
-package's opt-in, read at every call), a bf16 cloud of at least 2 x C_out
-points with N a multiple of 8 runs ``_ConvPooledSparseFused`` instead: the
-same backward, with the forward and the argmax from the fused kernel K8
-(``trunk_pooled_argmax``), so no (B, N, C) activation is written.
+input with N a multiple of 8. Otherwise ``trunk_grad_route`` decides from
+the cloud: "chain" (fewer than 2 x C_out = 1024 points) is the plain
+matmul chain and a max over points; "sparse" is ``_ConvPooledSparse``, whose
+backward recomputes only the pool's argmax rows; "k8" is
+``_ConvPooledSparseFused``: the same backward, with the forward and the
+argmax from the fused kernel K8 (``trunk_pooled_argmax``), so no (B, N, C)
+activation is written. On a card a bf16 cloud under autograd takes K8: the
+fast config's training trunk (``settings/config_3depn_chair_fast.json``)
+runs it with nothing set. On the CPU the JAX package's opt-in keeps its
+meaning: ``HPCD_TRUNK_FUSED_FWD=1`` (read at every call) sends a bf16 cloud
+to K8's plain version. fp32 never takes K8. Under a profiler each route
+taken is counted (``utils/profiling.py``, ``encoder.trunk_route.<route>``):
+once a captured step body in a scanned epoch, once a call in eager steps.
 """
 
 from __future__ import annotations
@@ -27,8 +32,49 @@ from torch import nn
 
 from hyperpocket_tpu_torch.models.initializers import dense, dense_init_, linear
 from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
+from hyperpocket_tpu_torch.utils import profiling
 
 CONV_CHANNELS = (3, 64, 128, 256, 512, 512)
+
+
+def trunk_grad_route(x) -> str:
+    """The route of ``Encoder.trunk`` outside K4: "k8", "sparse" or "chain".
+
+    Decided from the cloud's device type, dtype and point count and from
+    torch's grad mode, before any launch (``x`` may be anything with
+    ``device``, ``dtype`` and ``shape``):
+
+    * "chain": fewer than 2 x C_out (1024) points: the plain matmul chain
+      and ``amax``, any dtype and device.
+    * "k8" (``_ConvPooledSparseFused``): a bf16 cloud with N a multiple of 8
+      and under autograd on a CUDA device; on the CPU, a bf16 cloud with N
+      a multiple of 8 when ``HPCD_TRUNK_FUSED_FWD=1`` (the JAX package's
+      opt-in, in any grad mode), which runs K8's plain version.
+    * "sparse" (``_ConvPooledSparse``): every other cloud, fp32 always.
+
+    The JAX package keeps K8 opt-in because it was neutral on v5e; on the
+    H100 it leads. The fast config's scanned epochs (B=64, 1024 points a
+    partial cloud, both encoders; the benchmark's ``chair_train_fast_bf16``,
+    30 s windows, three pairs in turns with the "k8" cases sent to
+    "sparse", on an NVIDIA H100 80GB HBM3 at 700.00 W):
+
+    ========================  ===============  ===============
+    per run                   "k8"             "sparse"
+    ========================  ===============  ===============
+    train clouds/s            8,749-9,044      8,052-8,344
+    most epochs (s)           0.42-0.44        0.47-0.49
+    device memory peak (GB)   2.37             2.55
+    ========================  ===============  ===============
+    """
+    n = x.shape[1]
+    if n < 2 * CONV_CHANNELS[-1]:
+        return "chain"
+    shaped = x.dtype == torch.bfloat16 and n % 8 == 0
+    if x.device.type == "cuda":
+        fused = shaped and torch.is_grad_enabled()
+    else:
+        fused = shaped and os.environ.get("HPCD_TRUNK_FUSED_FWD") == "1"
+    return "k8" if fused else "sparse"
 
 
 class Encoder(nn.Module):
@@ -58,17 +104,20 @@ class Encoder(nn.Module):
         """x (B, N, 3) -> pooled features after fc + ReLU (B, 512)."""
         if fast and x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0:
             pooled = trunk_pooled([(layer.weight, layer.bias) for layer in self.conv], x)
-        elif x.shape[1] >= 2 * self.conv[-1].out_features:
+            return torch.relu(dense(self.fc, pooled))
+        route = trunk_grad_route(x)
+        if profiling.recording():
+            profiling.count(f"encoder.trunk_route.{route}")
+        if route == "chain":
+            # amax splits the gradient of a tie evenly, as jnp.max does
+            pooled = self.conv_stack(x).amax(dim=1)
+        else:
             params = []
             for layer in self.conv:
                 params += [layer.weight.to(x.dtype),
                            None if layer.bias is None else layer.bias.to(x.dtype)]
-            fused = (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
-                     and os.environ.get("HPCD_TRUNK_FUSED_FWD") == "1")
-            pooled = (_ConvPooledSparseFused if fused else _ConvPooledSparse).apply(x, *params)
-        else:
-            # amax splits the gradient of a tie evenly, as jnp.max does
-            pooled = self.conv_stack(x).amax(dim=1)
+            fn = _ConvPooledSparseFused if route == "k8" else _ConvPooledSparse
+            pooled = fn.apply(x, *params)
         return torch.relu(dense(self.fc, pooled))
 
     def forward(self, x: torch.Tensor, *, is_vae: bool,

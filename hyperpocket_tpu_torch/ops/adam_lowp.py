@@ -23,6 +23,7 @@ import functools
 import torch
 
 from hyperpocket_tpu_torch.ops._build import library
+from hyperpocket_tpu_torch.utils import profiling
 
 # the dtype codes of csrc/adam_lowp.cu
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -70,8 +71,12 @@ def adam_lowp_update(p, g, mu, nu, bc1, bc2, *, lr: float, b1: float, b2: float,
     fp32, bf16 or fp16 of one dtype, mu and nu of one dtype among the same
     three, all contiguous, of one shape, on one device with the fp32
     scalars bc1 and bc2. ``adam_lowp_update.launches`` counts kernel
-    launches. Returns p, mu and nu.
+    launches. Under a profiler the values updated are counted into
+    ``utils/profiling.py``'s totals as ``adam_lowp.values`` (in a scanned
+    epoch once, at the capture of the step). Returns p, mu and nu.
     """
+    if profiling.recording():
+        profiling.count("adam_lowp.values", p.numel())
     tensors = (p, g, mu, nu, bc1, bc2)
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, decoupled=decoupled)
     if all(t.device.type == "cpu" for t in tensors):

@@ -22,8 +22,8 @@ restores what the other saved: leaves ``arr_0..arr_k`` in
   ``nu``; plain SGD: nothing. A frozen-heads mask only drops the heads'
   leaves (optax's masked nodes hold none). Moments in bf16 are stored as
   the JAX package stores them: their raw 2-byte words, numpy dtype ``|V2``.
-  torch's Adam state (``step``, ``exp_avg``, ``exp_avg_sq``) maps to the
-  count, ``mu`` and ``nu``.
+  torch's Adam state (``step``, ``exp_avg``, ``exp_avg_sq``), which
+  ``AdamLowp`` keeps too, maps to the count, ``mu`` and ``nu``.
 
 No ``__structure__`` fingerprint is written (it hashes JAX's treedef repr);
 the JAX loader accepts such a file with its leaf-count and shape checks,
@@ -110,10 +110,8 @@ def resolve_restore_epoch(metrics_path: str, epoch: int, restore_policy,
 def _slots(optimizer: torch.optim.Optimizer) -> tuple[bool, list[str]]:
     """(whether the transform has a count leaf, the port's state keys of its
     per-parameter slots in optax's order)."""
-    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW, AdamLowp)):
         return True, ["exp_avg", "exp_avg_sq"]
-    if isinstance(optimizer, AdamLowp):
-        return True, ["mu", "nu"]
     if isinstance(optimizer, OptaxAmsgrad):
         return True, ["mu", "nu", "nu_max"]
     if isinstance(optimizer, OptaxRMSprop):

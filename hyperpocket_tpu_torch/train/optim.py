@@ -99,9 +99,12 @@ class OptaxAmsgrad(torch.optim.Optimizer):
 class AdamLowp(torch.optim.Optimizer):
     """Adam as the JAX package's ``scale_by_adam_lowp``, with optional L2 decay.
 
-    ``mu`` and ``nu`` are stored in ``moment_dtype``; each step computes
-    them in the gradient's dtype from the stored values and rounds them on
-    store, and the update reads the stored (rounded) moments in fp32:
+    The moments ``mu`` and ``nu`` are stored in ``moment_dtype`` under
+    torch's Adam names, ``exp_avg`` and ``exp_avg_sq``, so every reader of
+    an Adam's moments reads one layout (``train/checkpoint.py`` writes them
+    as optax's ``mu`` and ``nu``). Each step computes them in the
+    gradient's dtype from the stored values and rounds them on store, and
+    the update reads the stored (rounded) moments in fp32:
     ``(mu / bc1) / (sqrt(nu / bc2) + eps)`` with ``bc = 1 - b^step`` in
     fp32. ``decoupled`` selects AdamW's decay (added to the update) over
     Adam's (added to the gradient). As in ``OptaxAmsgrad`` the count lives
@@ -128,14 +131,14 @@ class AdamLowp(torch.optim.Optimizer):
                 state = self.state[p]
                 if not state:
                     state["step"] = step_count(p)
-                    state["mu"] = torch.zeros_like(p, dtype=md)
-                    state["nu"] = torch.zeros_like(p, dtype=md)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=md)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=md)
                 state["step"].add_(1)
                 t = state["step"]
                 # fills, not copies from the host: the step stays capturable
                 bc1 = 1 - torch.full((), b1, dtype=f32, device=t.device) ** t
                 bc2 = 1 - torch.full((), b2, dtype=f32, device=t.device) ** t
-                adam_lowp_update(p, p.grad, state["mu"], state["nu"], bc1, bc2,
+                adam_lowp_update(p, p.grad, state["exp_avg"], state["exp_avg_sq"], bc1, bc2,
                                  lr=group["lr"], b1=b1, b2=b2, eps=group["eps"],
                                  weight_decay=group["weight_decay"],
                                  decoupled=group["decoupled"])

@@ -49,7 +49,14 @@ reads each):
   builds it);
 * epoch graphs (``train/epoch_scan.py``): ``scan.rehearse``,
   ``scan.capture``, and a step's ``scan.fill`` (its batch and draws into the
-  static buffers) and ``scan.replay``.
+  static buffers) and ``scan.replay``;
+* counters of the step's routes, counted where the step's Python runs: in
+  a scanned epoch once, when the step is captured, so a traced epoch
+  records the routes its graph holds; in eager steps once a step.
+  ``encoder.trunk_route.<route>`` (``models/encoder.py::trunk_grad_route``:
+  ``k8``, ``sparse`` or ``chain``) once an encoder's training trunk, and
+  ``adam_lowp.values`` (``ops/adam_lowp.py``) the values an ``AdamLowp``
+  update launches over. They are counted only while a profiler records.
 
 Reading a trace: the card is idle wherever no kernel, copy or fill runs;
 the innermost span around such a gap on the host's thread names what the

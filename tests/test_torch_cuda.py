@@ -971,10 +971,12 @@ def test_head_adam_kernel_rejects_what_it_cannot_take(cuda):
 
 
 def test_fused_training_trunk_launches_k8_once(monkeypatch):
-    """HPCD_TRUNK_FUSED_FWD=1: a bf16 encoder's training trunk launches K8
-    once; its output and gradients follow the unfused trunk's (bf16 rounding
-    of two summation orders: outputs within 5% of their scale, gradients
-    within 10% relative L2)."""
+    """On the card a bf16 encoder's training trunk launches K8 once, with no
+    variable set (``trunk_grad_route``); its output and gradients follow the
+    cuBLAS trunk's (the "sparse" route, forced; bf16 rounding of two
+    summation orders: outputs within 5% of their scale, gradients within
+    10% relative L2)."""
+    from hyperpocket_tpu_torch.models import encoder as pencoder
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled_argmax
 
     if not torch.cuda.is_available():
@@ -982,11 +984,12 @@ def test_fused_training_trunk_launches_k8_once(monkeypatch):
     enc = Encoder(128, generator=torch.Generator().manual_seed(3)).cuda()
     x = _cloud(4, 1024, seed=4)
 
+    route = pencoder.trunk_grad_route
+    monkeypatch.delenv("HPCD_TRUNK_FUSED_FWD", raising=False)
+
     def run(fused):
-        if fused:
-            monkeypatch.setenv("HPCD_TRUNK_FUSED_FWD", "1")
-        else:
-            monkeypatch.delenv("HPCD_TRUNK_FUSED_FWD", raising=False)
+        monkeypatch.setattr(pencoder, "trunk_grad_route",
+                            route if fused else lambda x: "sparse")
         enc.zero_grad(set_to_none=True)
         bf = {n: p.to(torch.bfloat16) for n, p in enc.named_parameters()}
         mu = torch.func.functional_call(enc, bf, (x,), {"is_vae": False})
@@ -1281,10 +1284,13 @@ def _scan_vs_eager(dtype: str, train: bool, mesh=None, steps: int = SCAN_STEPS) 
 def test_train_epoch_graph_equals_the_eager_loop(cuda, case, monkeypatch):
     """Forward, backward and Adam (capturable) captured once and replayed a
     step: the eager steps' losses, reconstruction and parameters bit for bit;
-    ``.launches`` counts each replay's kernels (K1 twice, K8 twice with
-    HPCD_TRUNK_FUSED_FWD=1) and the rehearsal's."""
-    if case.endswith("_k8"):
-        monkeypatch.setenv("HPCD_TRUNK_FUSED_FWD", "1")
+    ``.launches`` counts each replay's kernels (K1 twice, K8 twice on the
+    card's bf16 route; "bfloat16" forces the cuBLAS trunk) and the
+    rehearsal's."""
+    from hyperpocket_tpu_torch.models import encoder as pencoder
+
+    if case == "bfloat16":
+        monkeypatch.setattr(pencoder, "trunk_grad_route", lambda x: "sparse")
     res = _scan_vs_eager(case.removesuffix("_k8"), train=True)
     eager, scan = res["eager"], res["scan"]
     assert torch.equal(scan["rows"], eager["rows"]) and torch.equal(scan["rec"], eager["rec"])
@@ -1641,7 +1647,7 @@ def _adam_run(param_dtype, moment_dtype: str, kind: str, wd: float, plain: bool,
     finally:
         optim.adam_lowp_update = own
     torch.cuda.synchronize()
-    return [(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"]) for p in params]
+    return [(p.detach(), opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]) for p in params]
 
 
 @pytest.mark.parametrize("kind", ["Adam", "AdamW"])

@@ -274,13 +274,13 @@ def _adam_lowp_host_count(opt: optim.AdamLowp) -> None:
                 g = g + wd * p
             state = opt.state[p]
             if not state:
-                state.update(step=0, mu=torch.zeros_like(p, dtype=md),
-                             nu=torch.zeros_like(p, dtype=md))
+                state.update(step=0, exp_avg=torch.zeros_like(p, dtype=md),
+                             exp_avg_sq=torch.zeros_like(p, dtype=md))
             state["step"] += 1
             t = torch.tensor(float(state["step"]), dtype=f32)
-            mu = (b1 * state["mu"].to(g.dtype) + (1 - b1) * g).to(md)
-            nu = (b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g).to(md)
-            state["mu"], state["nu"] = mu, nu
+            mu = (b1 * state["exp_avg"].to(g.dtype) + (1 - b1) * g).to(md)
+            nu = (b2 * state["exp_avg_sq"].to(g.dtype) + (1 - b2) * g * g).to(md)
+            state["exp_avg"], state["exp_avg_sq"] = mu, nu
             bc1 = 1 - torch.tensor(b1, dtype=f32) ** t
             bc2 = 1 - torch.tensor(b2, dtype=f32) ** t
             update = (mu.to(f32) / bc1) / (torch.sqrt(nu.to(f32) / bc2) + group["eps"])

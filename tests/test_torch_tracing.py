@@ -10,7 +10,10 @@ record, counts its items and collates only when the consumer records, and
 a loader error still reaches the consumer. On a cached 3D-EPN tree the
 loaders take the resident route (``data/loader.py``) and count
 ``loader.resident`` once a loader an epoch, beside the items, batches and
-receipts that the benchmark's loader readers find.
+receipts that the benchmark's loader readers find. The encoder's trunk
+counts the route it takes (``encoder.trunk_route.<route>``) and
+``AdamLowp`` the values it updates (``adam_lowp.values``) under a profiler
+only: without one neither calls ``count``.
 """
 
 from __future__ import annotations
@@ -163,10 +166,14 @@ def test_the_totals_count_the_calls_epochs_batches_and_items(config, serve):
             serve(seed)
         _epochs(config, epochs)
     got = {k: n for k, (n, _) in profiling.totals().items()}
-    seconds = {k: s for k, (_, s) in profiling.totals().items()}
+    # the trunk's route is a count with no seconds
+    seconds = {k: s for k, (_, s) in profiling.totals().items()
+               if not k.startswith("encoder.trunk_route.")}
     assert all(s > 0 for s in seconds.values()), seconds
     steps = TRAIN_BATCHES + VAL_BATCHES
     assert got == {
+        # a served call's real encoder; both encoders of every train and val step
+        "encoder.trunk_route.chain": calls + 2 * steps * epochs,
         "serving.completion": calls, "serving.upload": calls, "serving.replay": calls,
         "trainer.train_epoch": epochs, "trainer.val_epoch": epochs,
         "trainer.collect": 2 * epochs, "trainer.upload": 2 * epochs,
@@ -293,3 +300,45 @@ def test_counts_from_many_threads_lose_no_update():
     finally:
         sys.setswitchinterval(interval)
     assert profiling.totals() == {"n": (threads * adds, 0.5 * threads * adds)}
+
+
+@pytest.mark.parametrize("env, dtype, n, route", [
+    ("1", torch.bfloat16, 1024, "k8"), (None, torch.bfloat16, 1024, "sparse"),
+    ("1", torch.float32, 1024, "sparse"), (None, torch.float32, 64, "chain")])
+def test_the_trunk_route_is_counted_under_a_profiler_and_nowhere_else(monkeypatch, env, dtype,
+                                                                        n, route):
+    from hyperpocket_tpu_torch.models.encoder import Encoder
+
+    if env is None:
+        monkeypatch.delenv("HPCD_TRUNK_FUSED_FWD", raising=False)
+    else:
+        monkeypatch.setenv("HPCD_TRUNK_FUSED_FWD", env)
+    enc = Encoder(8, generator=torch.Generator().manual_seed(0)).to(dtype)
+    x = torch.randn((1, n, 3), generator=torch.Generator().manual_seed(1)).to(dtype)
+    count = profiling.count
+    calls = []
+    monkeypatch.setattr(profiling, "count", lambda *a: calls.append(a) or count(*a))
+    enc.trunk(x).sum().backward()
+    assert calls == [] and profiling.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        enc.trunk(x).sum().backward()
+    assert profiling.totals() == {f"encoder.trunk_route.{route}": (1, 0.0)}
+
+
+def test_adam_lowp_counts_the_values_it_updates_under_a_profiler_and_nowhere_else(monkeypatch):
+    from hyperpocket_tpu_torch.train import optim
+
+    params = [torch.nn.Parameter(torch.randn(9, 4)), torch.nn.Parameter(torch.randn(5))]
+    opt = optim.make_optimizer({"type": "Adam", "hyperparams": {
+        "lr": 1e-3, "moment_dtype": "bfloat16"}}, params)
+    count = profiling.count
+    calls = []
+    monkeypatch.setattr(profiling, "count", lambda *a: calls.append(a) or count(*a))
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert calls == [] and profiling.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        opt.step()
+        opt.step()
+    assert profiling.totals() == {"adam_lowp.values": (2 * (36 + 5), 0.0)}

@@ -162,9 +162,9 @@ def test_adam_lowp_reference_matches_scale_by_adam_lowp(moment_dtype, kind, wd):
         adam_state = state[adam_at]
         for i, p in enumerate(tparams):
             st = opt.state[p]
-            assert np.array_equal(st["mu"].float().numpy(),
+            assert np.array_equal(st["exp_avg"].float().numpy(),
                                   np.asarray(jnp.asarray(adam_state.mu[i], jnp.float32)))
-            assert np.array_equal(st["nu"].float().numpy(),
+            assert np.array_equal(st["exp_avg_sq"].float().numpy(),
                                   np.asarray(jnp.asarray(adam_state.nu[i], jnp.float32)))
             got_update = (p.detach() - before[i]).numpy()
             np.testing.assert_allclose(got_update, np.asarray(updates[i]), rtol=1e-6, atol=1e-7)
@@ -187,12 +187,13 @@ def _adam_lowp_step_before_the_kernel(opt: torch.optim.Optimizer) -> None:
                 state = opt.state[p]
                 if not state:
                     state["step"] = optim.step_count(p)
-                    state["mu"] = torch.zeros_like(p, dtype=md)
-                    state["nu"] = torch.zeros_like(p, dtype=md)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=md)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=md)
                 state["step"].add_(1)
                 t = state["step"]
-                mu = state["mu"].copy_(b1 * state["mu"].to(g.dtype) + (1 - b1) * g)
-                nu = state["nu"].copy_(b2 * state["nu"].to(g.dtype) + (1 - b2) * g * g)
+                mu = state["exp_avg"].copy_(b1 * state["exp_avg"].to(g.dtype) + (1 - b1) * g)
+                nu = state["exp_avg_sq"].copy_(b2 * state["exp_avg_sq"].to(g.dtype)
+                                               + (1 - b2) * g * g)
                 bc1 = 1 - torch.full((), b1, dtype=f32, device=t.device) ** t
                 bc2 = 1 - torch.full((), b2, dtype=f32, device=t.device) ** t
                 update = (mu.to(f32) / bc1) / (torch.sqrt(nu.to(f32) / bc2) + group["eps"])
@@ -222,7 +223,8 @@ def test_adam_lowp_equals_the_loop_before_the_kernel(param_dtype, moment_dtype, 
             for p, g in zip(params, step):
                 p.grad = torch.tensor(g).to(param_dtype)
             _adam_lowp_step_before_the_kernel(opt) if old else opt.step()
-        runs.append([(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"], opt.state[p]["step"])
+        runs.append([(p.detach(), opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"],
+                      opt.state[p]["step"])
                      for p in params])
     for new, old in zip(*runs):
         assert all(torch.equal(a, b) for a, b in zip(new, old))

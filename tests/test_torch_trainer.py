@@ -442,9 +442,9 @@ def test_lowp_adam_matches_scale_by_adam_lowp(moment_dtype):
             st = opt.state[p]
             mu = np.asarray(jnp.asarray(state.mu[i], jnp.float32))
             nu = np.asarray(jnp.asarray(state.nu[i], jnp.float32))
-            assert str(st["mu"].dtype) == f"torch.{moment_dtype}"
-            assert np.array_equal(st["mu"].float().numpy(), mu)
-            assert np.array_equal(st["nu"].float().numpy(), nu)
+            assert str(st["exp_avg"].dtype) == f"torch.{moment_dtype}"
+            assert np.array_equal(st["exp_avg"].float().numpy(), mu)
+            assert np.array_equal(st["exp_avg_sq"].float().numpy(), nu)
             got_update = (p.detach() - before[i]).numpy()  # lr 1: the update itself
             np.testing.assert_allclose(got_update, -np.asarray(updates[i]), rtol=1e-6, atol=1e-7)
 
@@ -464,7 +464,7 @@ def test_lowp_adam_moments_are_written_as_jax_bf16_words(tmp_path):
                          [[0.0]])
     arrays = _npz(tmp_path / "w" / "00001_O.npz")
     assert arrays[3].dtype == np.dtype("V2")
-    mu_heads_bias = opt.state[port.hyper_network.heads.bias]["mu"]
+    mu_heads_bias = opt.state[port.hyper_network.heads.bias]["exp_avg"]
     want = np.asarray(jnp.asarray(mu_heads_bias.float().numpy(), jnp.bfloat16))
     assert arrays[3].tobytes() == want.tobytes()
 
