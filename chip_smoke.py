@@ -2758,8 +2758,8 @@ def _epoch_timings(t_step, t_scan, epoch: int) -> dict:
     """ms per step of the step loop and of the scanned epoch over one
     epoch's uniform prefix (the batches already on the card, so no loader),
     train and val, in turns (step, scan, scan, step, step, scan); the
-    capture's ms; the device's busy share over one epoch each way
-    (``torch.profiler``)."""
+    capture's ms (0 where a call replays the kept graph); the device's busy
+    share over one epoch each way (``torch.profiler``)."""
     from hyperpocket_tpu_torch.train.trainer import _uniform_prefix
 
     batches, gens = t_scan._collect(t_scan.train_loader, epoch)
@@ -2835,10 +2835,12 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
     epoch 1, so epoch 2 recaptures in fp32), 2 epochs and their val epochs
     each, with deterministic algorithms: loss rows, val losses and
     parameters bit-equal; replays, scanned epochs and launches (the scan's
-    are the step loop's plus one rehearsal step a new dtype). Then, with
+    are the step loop's plus one rehearsal step a new dtype); captures, one
+    a dtype, the graph kept across the epochs in between. Then, with
     the default algorithms, ms per step both ways over an epoch's uniform
     prefix on the card, train and val, in turns (step, scan, scan, step,
-    step, scan), the capture's ms and the busy share."""
+    step, scan), the capture's ms (0 where a call replays the kept graph)
+    and the busy share."""
     data = tmp / "train_data"
     write_train_corpus(data, SCAN_MODELS)
     items = SCAN_MODELS * TRAIN_SAMPLES
@@ -2873,6 +2875,8 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
                     runs[mode].update(
                         replays=fn.replays, val_replays=vfn.replays,
                         rehearsals=fn.rehearsals, val_rehearsals=vfn.rehearsals,
+                        captures=fn.captures, val_captures=vfn.captures,
+                        reuses=fn.reuses, val_reuses=vfn.reuses,
                         launches_per_replay=fn.launches_per_replay,
                         val_launches_per_replay=vfn.launches_per_replay,
                         capture_ms=fn.capture_ms, val_capture_ms=vfn.capture_ms)
@@ -2909,7 +2913,9 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
                   f"scanned epochs {scan['scan_invocations']}, categories "
                   f"{scan['val_scan_invocations']}, replays {scan['replays']} + "
                   f"{scan['val_replays']}, rehearsals {scan['rehearsals']} + "
-                  f"{scan['val_rehearsals']}; launches scan {scan['launches']}, step loop "
+                  f"{scan['val_rehearsals']}, captures {scan['captures']} + "
+                  f"{scan['val_captures']}, kept graphs replayed {scan['reuses']} + "
+                  f"{scan['val_reuses']}; launches scan {scan['launches']}, step loop "
                   f"{step['launches']}; per replay {scan['launches_per_replay']} / "
                   f"{scan['val_launches_per_replay']}")
             check([len(r) for r in scan["rows"]] == [train_batches] * 2
@@ -2921,7 +2927,9 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
             check((scan["scan_invocations"], scan["val_scan_invocations"]) == (2, 2)
                   and (scan["replays"], scan["val_replays"]) == (2 * (train_batches - 1),
                                                                  2 * (val_batches - 1))
-                  and (scan["rehearsals"], scan["val_rehearsals"]) == (n_dtypes, n_dtypes),
+                  and (scan["rehearsals"], scan["val_rehearsals"]) == (n_dtypes, n_dtypes)
+                  and (scan["captures"], scan["val_captures"]) == (n_dtypes, n_dtypes)
+                  and (scan["reuses"], scan["val_reuses"]) == (2 - n_dtypes, 2 - n_dtypes),
                   f"scan {name}: {summary}")
             check(step["launches"] == want_step, f"scan {name}: step loop launched "
                   f"{step['launches']}, expected {want_step}")
@@ -3286,7 +3294,8 @@ def _scan_ab(t, ab: dict, rounds: int) -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
-    def scan():
+    def scan():  # captures under the route in force: the kept graph goes first
+        fn.release()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn(ex, mi, gt, gens[:n], 1.0, points)
@@ -3311,7 +3320,8 @@ def _fast_extras(t, fast_routes: dict, rounds: int) -> dict:
     points = int(gt.shape[2])
     fn = t._epoch_scan_fn
 
-    def scan():
+    def scan():  # captures under the route in force: the kept graph goes first
+        fn.release()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn(ex, mi, gt, gens[:n], 1.0, points)

@@ -20,7 +20,8 @@ runs it with nothing set. On the CPU the JAX package's opt-in keeps its
 meaning: ``HPCD_TRUNK_FUSED_FWD=1`` (read at every call) sends a bf16 cloud
 to K8's plain version. fp32 never takes K8. Under a profiler each route
 taken is counted (``utils/profiling.py``, ``encoder.trunk_route.<route>``):
-once a captured step body in a scanned epoch, once a call in eager steps.
+once a scanned epoch's call (its capture's count, which a call that replays
+a kept graph adds again), once a call in eager steps.
 """
 
 from __future__ import annotations
@@ -106,8 +107,7 @@ class Encoder(nn.Module):
             pooled = trunk_pooled([(layer.weight, layer.bias) for layer in self.conv], x)
             return torch.relu(dense(self.fc, pooled))
         route = trunk_grad_route(x)
-        if profiling.recording():
-            profiling.count(f"encoder.trunk_route.{route}")
+        profiling.tally(f"encoder.trunk_route.{route}")
         if route == "chain":
             # amax splits the gradient of a tie evenly, as jnp.max does
             pooled = self.conv_stack(x).amax(dim=1)

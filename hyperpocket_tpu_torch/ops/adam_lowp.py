@@ -72,11 +72,12 @@ def adam_lowp_update(p, g, mu, nu, bc1, bc2, *, lr: float, b1: float, b2: float,
     three, all contiguous, of one shape, on one device with the fp32
     scalars bc1 and bc2. ``adam_lowp_update.launches`` counts kernel
     launches. Under a profiler the values updated are counted into
-    ``utils/profiling.py``'s totals as ``adam_lowp.values`` (in a scanned
-    epoch once, at the capture of the step). Returns p, mu and nu.
+    ``utils/profiling.py``'s totals as ``adam_lowp.values`` (``tally``: in a
+    scanned epoch once a call, at the capture of the step or, where the
+    call replays a kept graph, from what its capture collected). Returns
+    p, mu and nu.
     """
-    if profiling.recording():
-        profiling.count("adam_lowp.values", p.numel())
+    profiling.tally("adam_lowp.values", p.numel())
     tensors = (p, g, mu, nu, bc1, bc2)
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, decoupled=decoupled)
     if all(t.device.type == "cpu" for t in tensors):

@@ -13,11 +13,10 @@ and the last step's reconstruction.
 
 On a CUDA device the body (the train step: forward, backward, gradient
 all-reduce and optimizer update; or the val step: forward and loss) is
-captured once a call into a ``torch.cuda.CUDAGraph`` over static buffers
-and replayed once a step: the host issues a replay, the copies of the
-step's batch and its two draws, where an eager step issues hundreds of
-launches. On the CPU the same call runs the body eagerly on the same
-buffers.
+captured into a ``torch.cuda.CUDAGraph`` over static buffers and replayed
+once a step: the host issues a replay, the copies of the step's batch and
+its two draws, where an eager step issues hundreds of launches. On the CPU
+the same call runs the body eagerly on the same buffers.
 
 * Draws and inputs: before each replay the host copies batch s into the
   static inputs and makes the step's two draws from its generator into the
@@ -26,9 +25,23 @@ buffers.
   an input (0.8-1.6 MB at B=64, device to device) keeps the captured body
   the step function itself; a step index kept on the device would need a
   body that indexes the stacked epoch, which the step function does not.
-* The learning rate enters the captured kernels as the float the optimizer
-  held at capture, so every call captures anew: once an epoch, after the
-  Trainer has set the epoch's rate.
+* The kept graph: each ``EpochScan`` keeps its latest graph, with its
+  static buffers, from one call to the next, and captures anew only where
+  the call's ``signature`` differs from the kept one's: the compute dtype,
+  the point count and the buffers' shapes and dtypes; the switches the
+  step's routes read (deterministic algorithms, fp32 matmul precision);
+  every parameter group's hyperparameters (the learning rate, betas, eps,
+  weight decay, ...: host floats in the captured kernels); and the
+  addresses of the parameters and of the optimizer's state, which the
+  kernels read and write. The body never reads ``epoch`` (the draws that
+  depend on it are made outside the graph). So a learning rate that
+  changes only at a ``StepLR`` step recaptures once, at that epoch, and a
+  ``compute_dtype_switch`` at the switch; a rate that changes every epoch
+  recaptures every epoch. One graph an ``EpochScan``: the old one goes
+  before the new capture. ``release()`` drops it, for a caller that
+  changes what the signature cannot see (a route patched in).
+* Each call's first step copies batch 0 and draw 0 into the kept buffers
+  (into fresh ones where it captures for new shapes).
 * Warm-up: cuBLAS, NCCL and the optimizer make their state at first use,
   which a capture must not record. The first capture of each dtype and set
   of shapes rehearses the body eagerly first, on the capture's stream
@@ -45,23 +58,37 @@ buffers.
   Nothing falls back to the step loop.
 * Spans (``utils/profiling.py``, under a profiler): ``scan.rehearse``,
   ``scan.capture``, and a step's ``scan.fill`` (its batch and draws into
-  the static buffers) and ``scan.replay``.
+  the static buffers) and ``scan.replay``. A call that replays a kept graph
+  counts ``scan.kept`` and adds again the counters its capture tallied
+  (``profiling.collected``: ``adam_lowp.values``,
+  ``encoder.trunk_route.<route>``), so each scanned call under a profiler
+  counts a step's routes and values once, whether it captured or not.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from hyperpocket_tpu_torch.ops import launch_counters
-from hyperpocket_tpu_torch.utils.cuda_graph import GraphCaptureError, capture, warm_up
-from hyperpocket_tpu_torch.utils.profiling import span
+from hyperpocket_tpu_torch.utils.cuda_graph import Graph, GraphCaptureError, capture, warm_up
+from hyperpocket_tpu_torch.utils.profiling import collected, count, recording, recount, span
 
 __all__ = ["EpochScan", "GraphCaptureError", "upload_stacked"]
 
 _ALIGN = 64  # bytes between the stacked arrays in the upload buffer
+
+
+class _Kept(NamedTuple):
+    """An ``EpochScan``'s latest graph: its ``signature``, the graph, its
+    static buffers and the counters its capture tallied."""
+
+    key: tuple
+    graph: Graph
+    static: dict
+    counts: dict
 
 
 def upload_stacked(parts: list[list[np.ndarray]], device: torch.device) -> list[torch.Tensor]:
@@ -96,21 +123,25 @@ class EpochScan:
     whose ranks draw the global batch). ``optimizer``, when the body updates
     parameters, is what a rehearsal puts back.
 
-    ``replays``, ``captures``, ``rehearsals``, ``capture_ms`` (host ms of the
-    last capture, from an idle card, instantiation included) and
-    ``launches_per_replay`` report the CUDA route; the CPU route runs the
-    body eagerly and leaves them.
+    On a card the latest capture's graph and static buffers are kept and
+    replayed by every later call of the same ``signature`` (see the module's
+    docstring). ``replays``, ``captures``, ``reuses`` (calls that replayed a
+    kept graph), ``rehearsals``, ``capture_ms`` (host ms of this call's
+    capture, from an idle card, instantiation included; None where the call
+    replayed a kept graph) and ``launches_per_replay`` report the CUDA
+    route; the CPU route runs the body eagerly and leaves them.
     """
 
     def __init__(self, body: Callable, *, model, optimizer=None, draw_rows: int = 1,
                  name: str = "step"):
         self.body, self.model, self.optimizer = body, model, optimizer
         self.draw_rows, self.name = draw_rows, name
-        self.replays = self.captures = self.rehearsals = 0
+        self.replays = self.captures = self.reuses = self.rehearsals = 0
         self.capture_ms: float | None = None
         self._per_replay: list[int] = []  # each launch counter's launches a replay
         self._rehearsed: set = set()
         self._stream: torch.cuda.Stream | None = None
+        self._kept: _Kept | None = None
 
     def __call__(self, existing: torch.Tensor, missing: torch.Tensor | None, gt: torch.Tensor,
                  generators: list, epoch, num_points: int):
@@ -123,9 +154,19 @@ class EpochScan:
         def draw(s):
             return self.model.random_inputs(generators[s], batch, num_points, epoch)
 
-        with span("scan.fill"):  # step 0's batch and draws are the static buffers
-            static = {k: None if v is None else v[0].clone() for k, v in stacked.items()}
-            static["vae_eps"], static["ball_points"] = draw(0)
+        kept = self._kept
+        with span("scan.fill"):  # step 0's batch and draws into the static buffers
+            first = {k: None if v is None else v[0] for k, v in stacked.items()}
+            first["vae_eps"], first["ball_points"] = draw(0)
+            shapes = self._shapes(first, num_points)
+            if kept is not None and kept.key[0] == shapes:
+                static = kept.static
+                for k, v in first.items():
+                    if v is not None:
+                        static[k].copy_(v)
+            else:
+                static = {k: v if v is None or k not in stacked else v.clone()
+                          for k, v in first.items()}
 
         def fill(s):
             with span("scan.fill"):
@@ -154,18 +195,28 @@ class EpochScan:
         device = existing.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
-        key = (self.model.compute_dtype, num_points,
-               tuple((k, None if v is None else (tuple(v.shape), v.dtype))
-                     for k, v in static.items()))
-        if key not in self._rehearsed:
+        if kept is not None and kept.static is not static:  # other shapes: its pool goes first
+            self._kept = kept = None
+        if shapes not in self._rehearsed:
             with span("scan.rehearse"):
                 self._rehearse(run, device)
-            self._rehearsed.add(key)
-        with span("scan.capture"):
-            graph = capture(run, self._stream, device, f"the {self.name} step")
-        self.capture_ms = graph.capture_ms
-        self.captures += 1
-        self._per_replay = graph.per_replay
+            self._rehearsed.add(shapes)
+        key = self.signature(static, num_points)
+        if kept is not None and kept.key == key:
+            self.reuses += 1
+            self.capture_ms = None
+            if recording():
+                count("scan.kept")
+                recount(kept.counts)
+        else:
+            self._kept = kept = None  # the old graph's pool goes before the capture
+            with span("scan.capture"), collected() as counts:
+                graph = capture(run, self._stream, device, f"the {self.name} step")
+            self._kept = kept = _Kept(key, graph, static, counts)
+            self.capture_ms = graph.capture_ms
+            self.captures += 1
+            self._per_replay = graph.per_replay
+        graph = kept.graph
         row, out = graph.out
         rows = torch.empty((steps, *row.shape), dtype=row.dtype, device=device)
         for s in range(steps):
@@ -175,8 +226,41 @@ class EpochScan:
                 graph.replay()
                 rows[s].copy_(row)
         self.replays += steps
-        # the static output lives in the graph's memory, which goes with it
+        # the static output lives in the graph's pool and is rewritten by its next replay
         return rows, out.clone()
+
+    def _shapes(self, static: dict, num_points: int) -> tuple:
+        """The compute dtype, the point count and each static buffer's shape
+        and dtype: what a rehearsal is made once for."""
+        return (self.model.compute_dtype, num_points,
+                tuple((k, None if v is None else (tuple(v.shape), v.dtype))
+                      for k, v in static.items()))
+
+    def signature(self, static: dict, num_points: int) -> tuple:
+        """The key a kept graph is replayed under: what its capture bakes in.
+
+        ``static`` (the step's buffers by name) and ``num_points`` give the
+        shapes (``_shapes``); then the switches the step's routes read, each
+        parameter group's hyperparameters (``params`` aside; a tensor one by
+        its address, which the kernels read), and the addresses of the
+        model's parameters and of the optimizer's state tensors.
+        """
+        groups = self.optimizer.param_groups if self.optimizer is not None else []
+        state = self.optimizer.state if self.optimizer is not None else {}
+        hyper = tuple(tuple((k, v.data_ptr() if torch.is_tensor(v) else v)
+                            for k, v in sorted(group.items()) if k != "params")
+                      for group in groups)
+        tensors = [*self.model.parameters(),
+                   *(v for group in groups for p in group["params"]
+                     for v in state.get(p, {}).values() if torch.is_tensor(v))]
+        return (self._shapes(static, num_points),
+                (torch.are_deterministic_algorithms_enabled(),
+                 torch.get_float32_matmul_precision()),
+                hyper, tuple(t.data_ptr() for t in tensors))
+
+    def release(self) -> None:
+        """Drop the kept graph and its buffers: the next call captures anew."""
+        self._kept = None
 
     @property
     def launches_per_replay(self) -> dict[str, int]:

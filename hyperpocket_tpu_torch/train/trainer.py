@@ -37,9 +37,10 @@ one-process file, and a restore re-shards it.
 ``make_val_epoch_scan``; the machinery is ``train/epoch_scan.py``): the
 uniform batch prefix of each train epoch and of each val category runs as
 one stacked upload and, on a card, replays of one CUDA graph of the step,
-captured anew each epoch; ragged tail batches run the step function, and
-every step takes its own value of the step counter, so the trajectory is
-the step loop's. On the CPU the same epoch function runs the step eagerly.
+kept across epochs and captured anew only where what it bakes in changes
+(the learning rate, the compute dtype, the shapes); ragged tail batches
+run the step function, and every step takes its own value of the step
+counter, so the trajectory is the step loop's. On the CPU the same epoch function runs the step eagerly.
 As in the JAX package, ``injection_provider`` runs the step loop, an epoch
 of fewer than two uniform batches is not scanned, and ``scan_invocations``
 and ``val_scan_invocations`` count the scanned epochs and categories.
@@ -277,7 +278,7 @@ def make_train_epoch_scan(model: FullModel, optimizer: torch.optim.Optimizer,
     per-step (loss, loss_r, loss_kld) rows and the last step's
     reconstruction. The body is ``make_train_step``'s step on the static
     buffers with the step's draws given, so the trajectory is the step
-    loop's; on a card it is a CUDA graph captured each call and replayed a
+    loop's; on a card it is a CUDA graph kept across calls and replayed a
     step (``train/epoch_scan.py``). Under ``mesh`` each rank draws the
     global batch, as the step does.
     """

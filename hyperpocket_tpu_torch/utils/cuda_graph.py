@@ -5,8 +5,11 @@ tensors on a card is captured once into a ``torch.cuda.CUDAGraph`` over
 static buffers and replayed: the host issues one launch where an eager call
 issues hundreds. Two users:
 
-* ``train/epoch_scan.py::EpochScan`` captures a train or val step once an
-  epoch and replays it a step (``capture``, ``warm_up``);
+* ``train/epoch_scan.py::EpochScan`` captures a train or val step once
+  for each signature (shapes, route switches, the optimizer's
+  hyperparameters, the addresses of the parameters and of its state),
+  keeps that graph across epochs and replays it a step (``capture``,
+  ``warm_up``);
 * ``serving.py`` captures its serving forward, the seed's ball draw
   included, once for each input signature and replays it at every later
   call (``GraphCache``), as ``jax.jit`` compiles once per shape.

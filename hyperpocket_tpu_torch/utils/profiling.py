@@ -20,6 +20,13 @@ Counterpart of ``hyperpocket_tpu/utils/profiling.py``:
 * ``count(name, value=1, seconds=0.0)``: adds to the same totals, for work on
   threads the profiler does not record (its state is thread-local): the
   caller reads ``recording()`` on a recorded thread and hands it on.
+* ``tally(name, value=1)``: a counter of the step's routes, where the
+  step's Python runs: added to the totals while a profiler records, and to
+  the innermost open ``collected()`` whether or not one records. A CUDA
+  graph's capture runs that Python once and its replays never, so
+  ``train/epoch_scan.py`` collects what its capture tallied and, at each
+  later call that replays the kept graph, adds it again with
+  ``recount(counts)``, again only while a profiler records.
 * ``totals()`` (``{name: (count, seconds)}``, a copy) and ``reset()``.
 
 The spans, from the entry points down (``PERF.md`` §3 names the metric that
@@ -49,14 +56,16 @@ reads each):
   builds it);
 * epoch graphs (``train/epoch_scan.py``): ``scan.rehearse``,
   ``scan.capture``, and a step's ``scan.fill`` (its batch and draws into the
-  static buffers) and ``scan.replay``;
-* counters of the step's routes, counted where the step's Python runs: in
-  a scanned epoch once, when the step is captured, so a traced epoch
-  records the routes its graph holds; in eager steps once a step.
-  ``encoder.trunk_route.<route>`` (``models/encoder.py::trunk_grad_route``:
-  ``k8``, ``sparse`` or ``chain``) once an encoder's training trunk, and
-  ``adam_lowp.values`` (``ops/adam_lowp.py``) the values an ``AdamLowp``
-  update launches over. They are counted only while a profiler records.
+  static buffers) and ``scan.replay``; the counter ``scan.kept`` counts the
+  calls that replayed a graph kept from an earlier call;
+* counters of the step's routes (``tally``): in a scanned epoch once a
+  call, at the step's capture or, where the call replays a kept graph, from
+  what that capture collected, so a traced epoch records the routes its
+  graph holds; in eager steps once a step. ``encoder.trunk_route.<route>``
+  (``models/encoder.py::trunk_grad_route``: ``k8``, ``sparse`` or
+  ``chain``) once an encoder's training trunk, and ``adam_lowp.values``
+  (``ops/adam_lowp.py``) the values an ``AdamLowp`` update launches over.
+  They reach the totals only while a profiler records.
 
 Reading a trace: the card is idle wherever no kernel, copy or fill runs;
 the innermost span around such a gap on the host's thread names what the
@@ -76,10 +85,12 @@ import time
 import torch
 from torch.autograd import _profiler_enabled as recording
 
-__all__ = ["count", "recording", "reset", "span", "totals", "trace"]
+__all__ = ["collected", "count", "recording", "recount", "reset", "span", "tally", "totals",
+           "trace"]
 
 _lock = threading.Lock()
 _totals: dict[str, list] = {}  # name -> [count, seconds]
+_open = threading.local()  # .counts: the innermost collected() of the thread
 
 
 @contextlib.contextmanager
@@ -144,6 +155,36 @@ def count(name: str, value: int = 1, seconds: float = 0.0) -> None:
         entry = _totals.setdefault(name, [0, 0.0])
         entry[0] += value
         entry[1] += seconds
+
+
+def tally(name: str, value: int = 1) -> None:
+    """Count ``value`` under ``name``: into the totals while a profiler
+    records on this thread, and into the thread's innermost ``collected()``."""
+    counts = getattr(_open, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + value
+    if recording():
+        count(name, value)
+
+
+@contextlib.contextmanager
+def collected():
+    """The dict of what ``tally`` counts on this thread inside the block,
+    whether or not a profiler records."""
+    outer, counts = getattr(_open, "counts", None), {}
+    _open.counts = counts
+    try:
+        yield counts
+    finally:
+        _open.counts = outer
+
+
+def recount(counts: dict[str, int]) -> None:
+    """Add ``counts`` (a ``collected()`` dict) to the totals while a
+    profiler records on this thread; otherwise nothing."""
+    if recording():
+        for name, value in counts.items():
+            count(name, value)
 
 
 def totals() -> dict[str, tuple[int, float]]:

@@ -1357,6 +1357,149 @@ def test_a_body_that_syncs_the_host_raises_naming_the_line(cuda):
     assert torch.ones(3, device=cuda).sum().item() == 3.0
 
 
+# Kept epoch graphs: an EpochScan keeps its graph across calls and replays it
+# while the capture's signature holds; the trajectory is a capture each call's
+
+KEPT_EPOCHS = 3
+
+
+def _epochs_kept(case: str, modes=("kept", "fresh"), lr3: float | None = None,
+                 traced_from: int | None = None) -> dict:
+    """KEPT_EPOCHS epochs of SCAN_STEPS stacked batches of SCAN_BATCH, each
+    epoch its own clouds and generators, of the chair model at full width,
+    one model copy a mode: "kept" through one EpochScan, "fresh" through a
+    new EpochScan each epoch (a capture each call), "eager" through the
+    step. ``case``: "float32" (capturable Adam), "bfloat16_k8" (the fast
+    config: K8, adam_lowp with bf16 moments) or "val" (the val step, the
+    parameters scaled in place between epochs). ``lr3``: the learning rate
+    from epoch 3 on; ``traced_from``: the epochs from that index on run
+    under a profiler. Deterministic algorithms, so the losses are bit-exact
+    (K9's atomics otherwise). Each mode's rows, last reconstruction,
+    parameters, optimizer state, EpochScans and capture_ms a call."""
+    import contextlib
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.train import optim, trainer
+
+    train = case != "val"
+    config = _settings("config_3depn_chair_fast.json" if case == "bfloat16_k8"
+                       else "config_3depn_chair.json")
+    config["full_model"]["compute_dtype"] = "bfloat16" if case == "bfloat16_k8" else "float32"
+    base = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(13)).to("cuda")
+    tr, coef = config["training"], float(config["training"]["loss_coef"])
+    data = [[_points(SCAN_STEPS * SCAN_BATCH, n, seed=100 * e + s).view(SCAN_STEPS, SCAN_BATCH, n, 3)
+             for n, s in ((1024, 1), (1024, 2), (2048, 3))] for e in range(KEPT_EPOCHS)]
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in modes:
+            model = copy.deepcopy(base)
+            opt = optim.make_optimizer(tr["optimizer"], optim.trainable_parameters(model))
+
+            def make(model=model, opt=opt):
+                return (trainer.make_train_epoch_scan(model, opt, coef) if train
+                        else trainer.make_val_epoch_scan(model, coef))
+
+            step = (trainer.make_train_step(model, opt, coef) if train
+                    else trainer.make_val_step(model, coef))
+            fns, rows, capture_ms = [make()], [], []
+            for e in range(KEPT_EPOCHS):
+                if lr3 is not None and e == 2:
+                    optim.set_learning_rate(opt, lr3)
+                if not train and e:
+                    with torch.no_grad():
+                        for p in model.parameters():
+                            p.mul_(0.99)
+                gens = [torch.Generator(device="cuda").manual_seed(1000 * e + s)
+                        for s in range(SCAN_STEPS)]
+                traced = traced_from is not None and e >= traced_from
+                with (profile(activities=[ProfilerActivity.CPU]) if traced
+                      else contextlib.nullcontext()):
+                    if mode == "eager":
+                        r = []
+                        for s in range(SCAN_STEPS):
+                            *losses, rec = step(*(d[s] for d in data[e]), gens[s], e + 1.0, 2048)
+                            r.append(torch.stack(losses) if train else losses[0])
+                        r = torch.stack(r)
+                    else:
+                        if mode == "fresh" and e:
+                            fns.append(make())
+                        r, rec = fns[-1](*data[e], gens, e + 1.0, 2048)
+                        capture_ms.append(fns[-1].capture_ms)
+                rows.append(r)
+            torch.cuda.synchronize()
+            out[mode] = {"rows": rows, "rec": rec, "fns": fns, "capture_ms": capture_ms,
+                         "params": [p.detach().clone() for p in model.parameters()],
+                         "state": [v.clone() for p in opt.param_groups[0]["params"]
+                                   for v in opt.state.get(p, {}).values() if torch.is_tensor(v)],
+                         "values_a_step": sum(p.numel() for p, st in opt.state.items() if st)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _same_epochs(a: dict, b: dict) -> None:
+    for key in ("rows", "params", "state"):
+        assert len(a[key]) == len(b[key]), key
+        assert all(torch.equal(x, y) for x, y in zip(a[key], b[key])), key
+    assert torch.equal(a["rec"], b["rec"])
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16_k8", "val"])
+def test_a_kept_epoch_graph_equals_a_capture_each_epoch(cuda, case):
+    """Three epochs through one EpochScan (one capture, two calls that
+    replay the kept graph: ``capture_ms`` None there) against a fresh
+    EpochScan each epoch: losses, reconstruction, parameters and Adam's
+    moments bit for bit."""
+    res = _epochs_kept(case)
+    kept, fresh = res["kept"], res["fresh"]
+    _same_epochs(kept, fresh)
+    assert all(bool(torch.isfinite(r).all()) for r in kept["rows"])
+    (fn,) = kept["fns"]
+    assert (fn.captures, fn.reuses, fn.rehearsals) == (1, KEPT_EPOCHS - 1, 1)
+    assert fn.replays == KEPT_EPOCHS * SCAN_STEPS
+    assert kept["capture_ms"][0] > 0 and kept["capture_ms"][1:] == [None] * (KEPT_EPOCHS - 1)
+    assert [(f.captures, f.reuses) for f in fresh["fns"]] == [(1, 0)] * KEPT_EPOCHS
+    assert all(ms > 0 for ms in fresh["capture_ms"])
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16_k8"])
+def test_a_learning_rate_changed_before_epoch_3_recaptures_once(cuda, case):
+    """The rate enters the captured kernels as a float: epoch 2 replays the
+    kept graph, epoch 3 at a new rate captures once more, and the three
+    epochs are the eager step loop's bit for bit."""
+    res = _epochs_kept(case, modes=("kept", "eager"), lr3=3e-5)
+    kept, eager = res["kept"], res["eager"]
+    _same_epochs(kept, eager)
+    (fn,) = kept["fns"]
+    assert (fn.captures, fn.reuses, fn.rehearsals) == (2, 1, 1)
+    ms = kept["capture_ms"]
+    assert ms[0] > 0 and ms[1] is None and ms[2] > 0
+
+
+def test_a_kept_graph_adds_its_captures_counters_once_a_call_under_a_profiler(cuda):
+    """The fast config's epoch 1 captures with no profiler (nothing
+    counted); epochs 2 and 3 replay the kept graph under one, and each adds
+    what the capture tallied: ``adam_lowp.values`` a step's values a call,
+    K8 twice (both encoders), and ``scan.kept`` once."""
+    from hyperpocket_tpu_torch.utils import profiling
+
+    profiling.reset()
+    try:
+        res = _epochs_kept("bfloat16_k8", modes=("kept",), traced_from=1)
+        got = {k: n for k, (n, _) in profiling.totals().items()
+               if k in ("adam_lowp.values", "scan.kept") or k.startswith("encoder.trunk_route")}
+    finally:
+        profiling.reset()
+    calls = KEPT_EPOCHS - 1
+    assert res["kept"]["fns"][0].reuses == calls
+    assert got == {"adam_lowp.values": calls * res["kept"]["values_a_step"],
+                   "encoder.trunk_route.k8": 2 * calls, "scan.kept": calls}
+
+
 def test_k4_and_k8_replay_after_an_in_place_weight_update(layers):
     """K4 and K8 encode their TMA maps at capture: with the weights and the
     input updated in place, replays give the eager kernels' outputs on the

@@ -10,13 +10,19 @@ two ranks (tests/torch_parallel_workers.py). The port's own cases: a
 one-batch epoch is not scanned, ``injection_provider`` runs the step loop,
 the ``compute_dtype_switch`` crossing, a resume, each optimizer with its
 count on the device and an lr schedule, and the optimizers written in the
-port against their arithmetic before the count moved to the device. One
-case runs the JAX Trainer in scan mode beside the port's and compares
-their counters and loss-row shapes.
+port against their arithmetic before the count moved to the device. The
+kept graph's parts that the CPU can hold: the signature a card's
+``EpochScan`` replays its graph under (it changes with a hyperparameter,
+the compute dtype, a buffer's shape, the optimizer's state, and not with
+the epoch), a step body that never reads the epoch, and the counters a
+capture collects and a replay adds again under a profiler only. One case
+runs the JAX Trainer in scan mode beside the port's and compares their
+counters and loss-row shapes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from os.path import join
 
@@ -319,6 +325,130 @@ def test_optimizers_keep_their_host_count_arithmetic(kind, decoupled, dtype):
                 assert torch.is_tensor(count) and count.device == p.device and count.item() == v
             else:
                 assert torch.equal(new.state[p][k], v), k
+
+
+# The kept graph (train/epoch_scan.py): a card's EpochScan replays its graph
+# across calls while ``signature`` holds. The CPU route captures nothing, so
+# these hold the signature, the body and the counters the card relies on.
+
+
+def _tiny_scan(data_root, tmp_path, kind: str = "train"):
+    """A tiny model with AdamLowp and its train (or val) EpochScan."""
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+
+    config = _config(data_root, tmp_path, "scan", "float32")
+    model = FullModel.from_config(config["full_model"], torch.Generator().manual_seed(0))
+    opt = optim.make_optimizer({"type": "Adam", "hyperparams": {
+        "lr": 1e-3, "moment_dtype": "bfloat16"}}, optim.trainable_parameters(model))
+    fn = (trainer.make_train_epoch_scan(model, opt, 1.0) if kind == "train"
+          else trainer.make_val_epoch_scan(model, 1.0))
+    return model, opt, fn
+
+
+def _clouds(seed: int, steps: int = 2, batch: int = 2, n_gt: int = 64) -> list[torch.Tensor]:
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((steps, batch, n, 3), generator=g) * 0.3 for n in (32, 32, n_gt)]
+
+
+def _static(model, clouds: list[torch.Tensor], epoch: float) -> dict:
+    """A call's static buffers: its first batch and that step's draws."""
+    static = dict(zip(("existing", "missing", "gt"), (c[0] for c in clouds)))
+    draws = model.random_inputs(torch.Generator().manual_seed(3), clouds[0].shape[1],
+                                clouds[2].shape[2], epoch)
+    static["vae_eps"], static["ball_points"] = draws
+    return static
+
+
+SIGNATURE_CHANGES = {
+    "epoch": None,
+    "lr": lambda model, opt: opt.param_groups[0].update(lr=5e-4),
+    "betas": lambda model, opt: opt.param_groups[0].update(betas=(0.8, 0.99)),
+    "eps": lambda model, opt: opt.param_groups[0].update(eps=1e-6),
+    "weight_decay": lambda model, opt: opt.param_groups[0].update(weight_decay=0.01),
+    "decoupled": lambda model, opt: opt.param_groups[0].update(decoupled=True),
+    "moment_dtype": lambda model, opt: opt.param_groups[0].update(moment_dtype=torch.float16),
+    "compute_dtype": lambda model, opt: setattr(model, "compute_dtype", "bfloat16"),
+    "buffer_shape": "gt",
+    "optimizer_state": lambda model, opt: opt.load_state_dict(copy.deepcopy(opt.state_dict())),
+    "deterministic_algorithms": lambda model, opt: torch.use_deterministic_algorithms(True),
+}
+
+
+@pytest.mark.parametrize("change", sorted(SIGNATURE_CHANGES))
+def test_the_kept_graph_signature_changes_with_what_the_capture_bakes_in(data_root, tmp_path,
+                                                                         change):
+    """A later epoch's call keeps the signature; a parameter group's
+    hyperparameter, the compute dtype, a buffer's shape, the optimizer's
+    state tensors or the deterministic switch changes it."""
+    model, opt, fn = _tiny_scan(data_root, tmp_path)
+    clouds = _clouds(1)
+    fn(*clouds, [torch.Generator().manual_seed(s) for s in range(2)], 1.0, 64)  # Adam's state
+    before = fn.signature(_static(model, clouds, 1.0), 64)
+    held = [v for st in opt.state.values() for v in st.values()]  # no address reused
+    what = SIGNATURE_CHANGES[change]
+    try:
+        if what == "gt":
+            clouds = _clouds(1, n_gt=128)
+        elif what is not None:
+            what(model, opt)
+        after = fn.signature(_static(model, clouds, 9.0), 64)
+        again = fn.signature(_static(model, clouds, 2.0), 64)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert held and (after == before) == (change == "epoch") and again == after
+
+
+@pytest.mark.parametrize("kind", ["train", "val"])
+def test_the_step_body_never_reads_the_epoch(data_root, tmp_path, kind):
+    """The body on the CPU route with the draws given, at epochs 1 and 9
+    from the same model: rows, reconstruction and parameters bit-equal, so
+    a graph captured at one epoch replays any other."""
+    clouds = _clouds(2)
+    got = []
+    for epoch in (1.0, 9.0):
+        model, _, fn = _tiny_scan(data_root, tmp_path, kind)
+        static = _static(model, clouds, 1.0)
+        row, rec = fn.body(static["existing"], static["missing"], static["gt"], epoch, 64,
+                           static["vae_eps"], static["ball_points"])
+        got.append((row, rec, [p.detach().clone() for p in model.parameters()]))
+    _equal(got[0], got[1], kind)
+    assert np.isfinite(got[0][0].detach().numpy()).all()
+
+
+@pytest.mark.parametrize("captured_under_a_profiler", [False, True])
+def test_a_capture_s_counts_are_added_again_once_a_call_under_a_profiler_only(
+        captured_under_a_profiler):
+    """What ``tally`` counts inside ``collected()`` is collected with or
+    without a profiler; ``recount`` adds it to the totals once a call while
+    one records, and never without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperpocket_tpu_torch.utils import profiling
+
+    profiling.reset()
+    try:
+        with (profile(activities=[ProfilerActivity.CPU]) if captured_under_a_profiler
+              else contextlib.nullcontext()):
+            with profiling.collected() as counts:
+                profiling.tally("adam_lowp.values", 41)
+                profiling.tally("encoder.trunk_route.k8")
+                profiling.tally("encoder.trunk_route.k8")
+        assert counts == {"adam_lowp.values": 41, "encoder.trunk_route.k8": 2}
+        captured = int(captured_under_a_profiler)
+        want = {} if not captured else {"adam_lowp.values": (41, 0.0),
+                                        "encoder.trunk_route.k8": (2, 0.0)}
+        assert profiling.totals() == want
+        profiling.recount(counts)
+        assert profiling.totals() == want
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(3):
+                profiling.recount(counts)
+        assert profiling.totals() == {"adam_lowp.values": (41 * (3 + captured), 0.0),
+                                      "encoder.trunk_route.k8": (2 * (3 + captured), 0.0)}
+        profiling.tally("adam_lowp.values", 5)  # no collection open, no profiler
+        assert profiling.totals()["adam_lowp.values"] == (41 * (3 + captured), 0.0)
+    finally:
+        profiling.reset()
 
 
 def test_upload_stacked_keeps_values_and_dtypes():
