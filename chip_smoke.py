@@ -15,8 +15,9 @@ Phases, each fatal on any error:
    one nvcc per source, all started together, and prints ptxas' registers,
    shared memory and spills of the trunk kernels' two instantiations (K4,
    K8), of the fused NN sweep's two copies (K5, K9), of the bf16 decode
-   kernel's two instantiations (K10: up to 128 and up to 256 channels) and
-   of the CUDA-core decode kernel's two (K10: fp32 and bf16 values); a
+   kernel's two instantiations (K10: up to 128 and up to 256 channels), of
+   the CUDA-core decode kernel's two (K10: fp32 and bf16 values) and of the
+   decode's backward and its chunk sum (``decode_batch_grad.cu``); a
    spill fails the run.
 3. trunk kernel vs plain: the trunk kernel (``ops/trunk_pool.py``) against its
    plain PyTorch version on the card, at the serving shapes and at ragged,
@@ -62,8 +63,9 @@ Phases, each fatal on any error:
    the plain Chamfer's on the same injected noise and ball points (relative
    L2 <= 1e-3), then 5 train steps (K9 once per step, K1 never: the card's
    Chamfer route, ``ops/nn.py::chamfer_grad_route``) and a val step at
-   B=60 (K3 once, K10 once); bf16: 3 train steps (K9 once each) and a val
-   step (K4 twice, K3 once, K10 once); train steps launch no K10. Losses
+   B=60 (K3 once, K10 once); bf16: 3 train steps (K9 once each, K10 and
+   its backward once each: ``decode_grad_route``) and a val step (K4
+   twice, K3 once, K10 once); fp32 train steps launch no K10. Losses
    finite, parameters changed; train and val step times at B=64.
 
 9. EMD kernels vs plain: K6 (``match_cost_fwd_kernel``) and K7
@@ -263,6 +265,17 @@ Phases, each fatal on any error:
    ``slice_point_cloud`` on the first 8 clouds, draws tested and blocks a
    cloud, and the host syncs of a B=64 call (``torch.cuda``'s sync debug
    mode: one a block). Phase 28 prints its wall time.
+
+29. the bf16 training decode (``ops/decoder.py::decode_batch_train``: K10's
+   forward, then ``decode_batch_grad``, ``csrc/decode_batch_grad.cu``) at
+   B=64, N=2048 on the served model's own flat weights and ball points: the
+   route "k10"; the flat gradient against its plain version and the
+   chain's autograd (relative L2 <= 1e-2), two runs bit-equal, the training
+   decode's value and gradient against the chain's; small, ragged, no-bias
+   and wide widths (hidden layers of 120 and 128 channels) against
+   the plain version; then the forward and backward both ways in turns (A
+   B B A, twice, device ms), the forward's and the backward's ms alone and
+   the least time of the work. Phase 29 prints its wall time.
 
 Serving through CUDA graphs (phases 4, 5, 19, 20, 25 and the profile):
 every serving callable captures its forward once for each input signature
@@ -1129,7 +1142,7 @@ def first_step_grads(model, params, batch, balls, loss_fn) -> torch.Tensor:
 def drive_training(config: dict, model32, device) -> dict:
     """The training slice: train steps and val steps in fp32 and bf16, with launch counts."""
     from hyperpocket_tpu_torch.ops.chamfer import chamfer_loss
-    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_grad
     from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad, nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled
@@ -1140,7 +1153,8 @@ def drive_training(config: dict, model32, device) -> dict:
     trainer.set_matmul_precision(tr.get("matmul_precision", "highest"))
     loss_coef = float(tr["loss_coef"])
     out = {}
-    kernels = (nn_one_direction, chamfer_loss_grad, nn_min_fused, trunk_pooled, decode_batch)
+    kernels = (nn_one_direction, chamfer_loss_grad, nn_min_fused, trunk_pooled, decode_batch,
+               decode_batch_grad)
 
     def reset():
         for k in kernels:
@@ -1150,7 +1164,8 @@ def drive_training(config: dict, model32, device) -> dict:
         return {"nn_one_direction": nn_one_direction.launches,
                 "chamfer_loss_grad": chamfer_loss_grad.launches,
                 "nn_min_fused": nn_min_fused.launches, "trunk_pool": trunk_pooled.launches,
-                "decode_batch": decode_batch.launches}
+                "decode_batch": decode_batch.launches,
+                "decode_batch_grad": decode_batch_grad.launches}
 
     for dtype, steps in (("float32", 5), ("bfloat16", 3)):
         model = copy.deepcopy(model32)
@@ -1205,11 +1220,15 @@ def drive_training(config: dict, model32, device) -> dict:
               f"{dtype}: reconstruction {tuple(rec.shape)} {rec.dtype}")
         check(all(not torch.equal(p, b) for p, b in zip(params, before) if p.grad is not None),
               f"{dtype}: a parameter with a gradient did not change")
+        # bf16 decodes its train steps through K10 and its backward (decode_grad_route)
+        k10 = steps if dtype == "bfloat16" else 0
         check(train_counts == {"nn_one_direction": 0, "chamfer_loss_grad": steps,
-                               "nn_min_fused": 0, "trunk_pool": 0, "decode_batch": 0},
+                               "nn_min_fused": 0, "trunk_pool": 0, "decode_batch": k10,
+                               "decode_batch_grad": k10},
               f"{dtype}: {steps} train steps launched {train_counts}")
         want_val = {"nn_one_direction": 0, "chamfer_loss_grad": 0, "nn_min_fused": 1,
-                    "trunk_pool": 2 if dtype == "bfloat16" else 0, "decode_batch": 1}
+                    "trunk_pool": 2 if dtype == "bfloat16" else 0, "decode_batch": 1,
+                    "decode_batch_grad": 0}
         check(val_counts == want_val, f"{dtype}: the val step launched {val_counts}")
 
         res.update(losses=losses, val_loss=val_loss.item(), train_launches=train_counts,
@@ -1539,7 +1558,7 @@ def drive_cli_training(device, tmp: Path) -> dict:
 
     from hyperpocket_tpu_torch import cli
     from hyperpocket_tpu_torch.ops.adam_lowp import adam_lowp_update
-    from hyperpocket_tpu_torch.ops.decoder import decode_batch
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_grad
     from hyperpocket_tpu_torch.ops.nn import chamfer_loss_grad, nn_min_fused, nn_one_direction
     from hyperpocket_tpu_torch.ops.trunk_pool import trunk_pooled, trunk_pooled_argmax
     from hyperpocket_tpu_torch.train import optim
@@ -1548,7 +1567,7 @@ def drive_cli_training(device, tmp: Path) -> dict:
     kernels = {"nn_one_direction": nn_one_direction, "chamfer_loss_grad": chamfer_loss_grad,
                "nn_min_fused": nn_min_fused, "trunk_pool": trunk_pooled,
                "trunk_pool_argmax": trunk_pooled_argmax, "decode_batch": decode_batch,
-               "adam_lowp": adam_lowp_update}
+               "decode_batch_grad": decode_batch_grad, "adam_lowp": adam_lowp_update}
     data = tmp / "train_data"
     t0 = time.perf_counter()
     write_train_corpus(data)
@@ -1625,7 +1644,9 @@ def drive_cli_training(device, tmp: Path) -> dict:
                         "nn_min_fused": val_batches * len(epochs),
                         "trunk_pool": 2 * val_batches * len(bf16_epochs),
                         "trunk_pool_argmax": 2 * steps[0] * len(bf16_epochs),
-                        "decode_batch": len(forwards),
+                        # the inference forwards, and the bf16 train steps' decode
+                        "decode_batch": len(forwards) + steps[0] * len(bf16_epochs),
+                        "decode_batch_grad": steps[0] * len(bf16_epochs),
                         "adam_lowp": tensors * sum(steps) if fused else 0}
                 check(len(forwards) >= val_batches * len(epochs),
                       f"{cfg_name}: {len(forwards)} inference forwards in {len(epochs)} epochs")
@@ -2891,14 +2912,19 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
             # the fast config's Adam launches adam_lowp once a tensor with a gradient
             tensors = k8 * sum(p.grad is not None
                                for p in trainers["step"].optimizer.param_groups[0]["params"])
+            # the bf16 train steps decode through K10 and its backward
             want_step = {"nn_one_direction": 2 * 2 * train_batches,
-                         "nn_min_fused": 2 * val_batches, "decode_batch": 2 * val_batches,
+                         "nn_min_fused": 2 * val_batches,
+                         "decode_batch": 2 * val_batches + train_batches * bf16_epochs,
+                         "decode_batch_grad": train_batches * bf16_epochs,
                          "trunk_pooled": 2 * val_batches * bf16_epochs,
                          "trunk_pooled_argmax": 2 * train_batches * bf16_epochs,
                          "adam_lowp_update": 2 * train_batches * tensors}
             want_step = {k: v for k, v in want_step.items() if v}
             rehearsal = {"nn_one_direction": 2 * n_dtypes, "nn_min_fused": n_dtypes,
-                         "decode_batch": n_dtypes, "trunk_pooled": 2 * bool(bf16_epochs),
+                         "decode_batch": n_dtypes + bool(bf16_epochs),
+                         "decode_batch_grad": int(bool(bf16_epochs)),
+                         "trunk_pooled": 2 * bool(bf16_epochs),
                          "trunk_pooled_argmax": 2 * bool(bf16_epochs),
                          "adam_lowp_update": tensors * n_dtypes}
             want_scan = {k: v + rehearsal[k] for k, v in want_step.items()}
@@ -3434,6 +3460,133 @@ def drive_slicer(device) -> dict:
             "device_B64": b64, "device_B1": b1, "host": host}
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the bf16 training decode through K10 and its backward
+# (``ops/decoder.py::decode_batch_train``) against the bmm chain.
+
+DECODE_GRAD_REL_L2 = 1e-3  # bf16: both round each fp32 sum once, in another order (as the card tests)
+DECODE_GRAD_CASES = (  # (channels, use_bias, batch, points): small, ragged, no bias, wide
+    ((8, 16), True, 3, 64), ((16,), False, 2, 77), ((), True, 5, 300),
+    ((32, 64, 128, 64), False, 3, 1000), ((32, 64, 128, 64), True, 1, 2048),
+    ((128,), True, 2, 130), ((40, 24, 72), True, 3, 500), ((120, 24), False, 2, 700))
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def decode_grad_vs_chain(model, device) -> dict:
+    """Phase 29: ``decode_batch_grad`` (``csrc/decode_batch_grad.cu``) on the
+    model's own flat weights (the hypernetwork's bf16 output for a B=64
+    request) and ball points, N=2048, against its plain version and the
+    chain's autograd (relative L2 <= DECODE_GRAD_REL_L2), bit-equal on two
+    runs; ``decode_batch_train``'s value and gradient against the chain's;
+    small, ragged, no-bias and wide widths (a hidden layer of 120 and of 128
+    channels) against the plain version. Then the training decode's
+    forward and backward both ways in turns (A B B A, twice; device ms with
+    the calls queued behind a sleep), beside the least time of the work
+    (forward, dW and dZ on the bf16 tensor cores) and each launch's ms."""
+    from hyperpocket_tpu_torch.models.hyper_network import target_weight_count
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+    from hyperpocket_tpu_torch.ops import decoder
+    from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+
+    channels, use_bias = tuple(model.target_layer_out_channels), model.target_use_bias
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    net = model.serving_params().to(device)
+    existing = torch.randn((SERVE_BATCH, N_EXISTING, 3), generator=gen, device=device) * 0.3
+    noise = torch.randn((SERVE_BATCH, net.get_noise_size()), generator=gen, device=device) * 0.13
+    with torch.no_grad():
+        latent, _, _ = net._get_latent(existing.bfloat16(), None, None, False, noise.bfloat16(),
+                                       None)
+        flat = net.hyper_network(latent)
+    del net
+    balls = generate_target_network_input_batch(
+        model.target_network_input, gen, 1e9, SERVE_BATCH, N_OUT).bfloat16()
+    # a Chamfer gradient's scale: 1/N a point
+    g_out = (torch.randn(balls.shape, generator=gen, device=device) / N_OUT).bfloat16()
+    res = {"route": decoder.decode_grad_route(flat.requires_grad_(), balls, channels, use_bias)}
+    check(res["route"] == "k10", f"phase 29: the chair decode routes to {res['route']}")
+    flat = flat.detach()
+
+    decoder.decode_batch_grad.launches = 0
+    got = decoder.decode_batch_grad(flat, balls, g_out, channels, use_bias)
+    again = decoder.decode_batch_grad(flat, balls, g_out, channels, use_bias)
+    plain = decoder.decode_batch_grad_reference(flat, balls, g_out, channels, use_bias)
+    f = flat.clone().requires_grad_()
+    batched_target_network_forward(f, balls, list(channels), use_bias).backward(g_out)
+    torch.cuda.synchronize()
+    res.update(launches=decoder.decode_batch_grad.launches, bit_equal=torch.equal(got, again),
+               rel_l2_plain=_rel_l2(got, plain), rel_l2_chain=_rel_l2(got, f.grad),
+               plain_rel_l2_chain=_rel_l2(plain, f.grad),
+               max_abs_err=(got.float() - plain.float()).abs().max().item(),
+               finite=bool(torch.isfinite(got).all()))
+    ft = flat.clone().requires_grad_()
+    out = decoder.decode_batch_train(ft, balls, channels, use_bias)
+    out.backward(g_out)
+    f = flat.clone().requires_grad_()
+    chain_out = batched_target_network_forward(f, balls, list(channels), use_bias)
+    chain_out.backward(g_out)
+    res.update(train_value_rel_l2=_rel_l2(out, chain_out),
+               train_grad_rel_l2=_rel_l2(ft.grad, f.grad))
+    print(f"phase 29: decode_batch_grad at B={SERVE_BATCH}, N={N_OUT}: {json.dumps(res)} "
+          f"(limit {DECODE_GRAD_REL_L2})")
+    check(res["launches"] == 2 and res["bit_equal"] and res["finite"],
+          f"phase 29: launches {res['launches']}, bit-equal {res['bit_equal']}")
+    check(max(res["rel_l2_plain"], res["rel_l2_chain"], res["train_value_rel_l2"],
+              res["train_grad_rel_l2"]) <= DECODE_GRAD_REL_L2,
+          f"phase 29: the backward is off the plain version or the chain: {res}")
+
+    res["cases"] = {}
+    for chans, bias, batch, n in DECODE_GRAD_CASES:
+        w = target_weight_count(list(chans), bias)
+        fl = (torch.randn((batch, w), generator=gen, device=device) * 0.3).bfloat16()
+        pts = (torch.randn((batch, n, 3), generator=gen, device=device) * 0.5).bfloat16()
+        go = (torch.randn((batch, n, 3), generator=gen, device=device) / n).bfloat16()
+        got = decoder.decode_batch_grad(fl, pts, go, chans, bias)
+        want = decoder.decode_batch_grad_reference(fl, pts, go, chans, bias)
+        name = f"{'x'.join(map(str, chans)) or 'none'}_bias{int(bias)}_B{batch}_N{n}"
+        res["cases"][name] = {"rel_l2": _rel_l2(got, want),
+                              "route": decoder.decode_grad_route(fl.requires_grad_(), pts,
+                                                                 chans, bias)}
+        check(res["cases"][name]["rel_l2"] <= DECODE_GRAD_REL_L2
+              and bool(torch.isfinite(got).all()), f"phase 29: {name}: {res['cases'][name]}")
+    print(f"phase 29 cases: {json.dumps(res['cases'])}")
+
+    flat_g = flat.clone().requires_grad_()
+
+    def train_decode():
+        out = decoder.decode_batch_train(flat_g, balls, channels, use_bias)
+        torch.autograd.grad(out, flat_g, g_out)
+
+    def chain_decode():
+        out = batched_target_network_forward(flat_g, balls, list(channels), use_bias)
+        torch.autograd.grad(out, flat_g, g_out)
+
+    turns = {"chain": [], "k10": []}
+    for _ in range(2):
+        for which in AB_ORDER:
+            name, fn = ("chain", chain_decode) if which == "a" else ("k10", train_decode)
+            turns[name].append(device_ms(fn, iters=10))
+    macs = sum(i * o for i, o in zip((3, *channels), (*channels, 3)))
+    # forward, dW and dZ (the first layer's has no input gradient) a point
+    work = 2 * SERVE_BATCH * N_OUT * (3 * macs - 3 * channels[0])
+    res["times"] = {
+        "turns_device_ms": turns, "ms": statistics.median(turns["k10"]),
+        "chain_ms": statistics.median(turns["chain"]),
+        "forward_ms": device_ms(lambda: decoder.decode_batch(flat, balls, channels, use_bias,
+                                                             round_product=True)),
+        "backward_ms": device_ms(lambda: decoder.decode_batch_grad(flat, balls, g_out, channels,
+                                                                   use_bias)),
+        "plain_ms": cuda_ms(lambda: decoder.decode_batch_grad_reference(
+            flat, balls, g_out, channels, use_bias), iters=3),
+        **bound(2 * (2 * flat.numel() + 2 * balls.numel()), work / BF16_FLOPS)}
+    res["times"]["ratio_to_chain"] = res["times"]["ms"] / res["times"]["chain_ms"]
+    res["times"]["bound_share"] = res["times"]["bound_ms"] / res["times"]["ms"]
+    print(f"phase 29 timing: {json.dumps(res['times'])}")
+    return res
+
+
 def _device_ms_by_kernel(fn, calls: int) -> dict:
     """Device time per call by kernel name over ``calls`` calls (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -3557,6 +3710,7 @@ def main(argv=None) -> int:
     ptxas_check(log, "nn_fused_kernel", "fused NN sweep")
     ptxas_check(log, "decode_batch_tc_kernel", "bf16 decode")
     ptxas_check(log, "decode_batch_kernel", "CUDA-core decode")
+    ptxas_check(log, "decode_batch_grad", "decode backward")
 
     from hyperpocket_tpu_torch.data import plyio
 
@@ -3641,6 +3795,9 @@ def main(argv=None) -> int:
     sliced = drive_slicer(device)
     print(f"slicer: {json.dumps(sliced)} on {card}")
     print(f"phase 28 wall s: {time.perf_counter() - t0!r}")
+    t0 = time.perf_counter()
+    dgrad = decode_grad_vs_chain(model, device)
+    print(f"phase 29 wall s: {time.perf_counter() - t0!r}")
     if args.profile is not None:
         profile(config, model, model32, device, args.profile)
         print(f"profile: written to {args.profile}")
@@ -3707,6 +3864,13 @@ def main(argv=None) -> int:
               "hyperpocket_tpu/ops/pallas_decoder.py:117",
               k10["wide_model_launches"]["decode_batch_bf16_simt"], k10["small_err"]["bf16_wide"],
               k10["times"][f"bf16_simt_272_B{SERVE_BATCH}"], library_key="chain_ms"),
+        # not a TPU kernel: the bf16 training decode's backward (the JAX package trains
+        # through XLA's bmm chain); launches in phase 8's bf16 train steps. Its time is
+        # K10's forward and the backward together, against the chain's autograd
+        entry("decode_batch_grad", "decode_batch_grad.cu",
+              "hyperpocket_tpu/models/target_network.py (XLA)",
+              training["bfloat16"]["train_launches"]["decode_batch_grad"], dgrad["max_abs_err"],
+              dgrad["times"], library_key="chain_ms", scan_key="decode_batch_grad"),
         # not a TPU kernel: scale_by_adam_lowp is XLA inside the jitted JAX step;
         # launches in the fast config's training-CLI run (phase 14)
         entry("adam_lowp", "adam_lowp.cu", "hyperpocket_tpu/train/optim.py:29", fast["adam_lowp"],

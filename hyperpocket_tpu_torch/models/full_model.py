@@ -20,7 +20,11 @@ kernel is the faster of the two (PERF.md). fp64 and fp16 keep the chain,
 and so does a decoder wider than K10's limits (more than 16 layers or a
 layer above 4096 channels): ``decode_route``, fixed from the configured
 widths when the model is built, is "k10" or "chain", the JAX model's route
-at every width.
+at every width. The training forward decodes through the chain too, but
+where ``ops/decoder.py::decode_grad_route`` says "k10" (bf16 on the card):
+there K10 decodes and ``decode_batch_grad`` differentiates. Under a profiler
+each training forward counts its decode's route
+(``decoder.grad_route.<route>``, as the encoders count theirs).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from hyperpocket_tpu_torch.models.hyper_network import HyperNetwork
 from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
 from hyperpocket_tpu_torch.ops import decoder
 from hyperpocket_tpu_torch.ops.sampling import generate_target_network_input_batch
+from hyperpocket_tpu_torch.utils import profiling
 
 MODE_HYPER_POCKET = "hyper_pocket"
 MODE_HYPER_REC = "hyper_rec"
@@ -256,6 +261,11 @@ class FullModel(nn.Module):
         if self.fused_decode(training):
             # the chain's rounding, so that K10 decodes as the JAX model does
             reconstruction = decoder.decode_batch(*decode_args, round_product=True)
+        elif training:
+            route = decoder.decode_grad_route(*decode_args)
+            profiling.tally(f"decoder.grad_route.{route}")
+            reconstruction = (decoder.decode_batch_train if route == "k10"
+                              else batched_target_network_forward)(*decode_args)
         else:
             reconstruction = batched_target_network_forward(*decode_args)
         out_dtype = cd if torch.finfo(cd).bits >= 32 else torch.float32

@@ -1,8 +1,9 @@
 """Point-cloud ops of the port: Chamfer, NN distance, approximate EMD, sampling, decode.
 
 The counterparts of ``hyperpocket_tpu/ops/__init__.py``'s public names, plus
-``chamfer_loss_fused``, ``decode_batch`` and ``adam_lowp_update`` (the
-optimizer's pass, ``ops/adam_lowp.py``). CUDA tensors go to the
+``chamfer_loss_fused``, ``decode_batch``, ``decode_batch_grad`` (the
+training decode's backward) and ``adam_lowp_update`` (the optimizer's pass,
+``ops/adam_lowp.py``). CUDA tensors go to the
 hand-written kernels (built at their first launch, not at import), CPU
 tensors to their plain versions. ``launch_counters`` (not a JAX name, so
 not in ``__all__``) lists every kernel wrapper's launch count.
@@ -15,7 +16,7 @@ from hyperpocket_tpu_torch.ops.chamfer import (
     chamfer_per_cloud,
     nn_distance,
 )
-from hyperpocket_tpu_torch.ops.decoder import decode_batch
+from hyperpocket_tpu_torch.ops.decoder import decode_batch, decode_batch_grad
 from hyperpocket_tpu_torch.ops.emd import (
     approx_match,
     earth_mover_distance,
@@ -50,7 +51,7 @@ def launch_counters() -> list[tuple[object, str]]:
     counters = [(k, "launches") for k in (
         trunk_pooled, trunk_pooled_argmax, nn_one_direction, nn_min_fused, nn_fused_planes,
         chamfer_loss_grad, match_cost_fwd_kernel, match_cost_bwd_kernel, head_adam_update,
-        decode_batch, adam_lowp_update)]
+        decode_batch, decode_batch_grad, adam_lowp_update)]
     return [*counters, (decode_batch, "launches_bf16_simt")]
 
 

@@ -728,12 +728,126 @@ def test_decode_op_opcheck_on_cuda(cuda):
         assert decode_batch.launches == before + 1
 
 
+# The bf16 training decode's backward (csrc/decode_batch_grad.cu): both round
+# each fp32 sum once, in another order, so the flat gradient lies within a
+# small share of a bf16 step of the chain's (1e-3 relative L2, a quarter of
+# one bf16 rounding; 1e-4 measured at B=64, N=2048 on an H100)
+DECODE_GRAD_REL_L2 = 1e-3
+# (channels, use_bias, batch, points): the chair widths at the fast cell's
+# shape, ragged counts, no bias, one layer, none, the widest layer the
+# kernel takes, and widths not multiples of 16
+DECODE_GRAD_CASES = [((32, 64, 128, 64), True, 64, 2048), ((32, 64, 128, 64), False, 3, 1000),
+                     ((8, 16), True, 3, 77), ((16,), False, 2, 64), ((), True, 5, 300),
+                     ((128,), True, 2, 130), ((40, 24, 72), True, 3, 500),
+                     ((120, 24), False, 2, 700)]
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _grad_case(channels, use_bias, batch, n, seed=0):
+    flat, pts = _decode_inputs(channels, use_bias, batch, n, torch.bfloat16, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    go = (torch.randn((batch, n, 3), generator=g, device="cuda") / n).to(torch.bfloat16)
+    return flat, pts, go
+
+
+@pytest.mark.parametrize("case", DECODE_GRAD_CASES)
+def test_decode_batch_grad_matches_the_chain_and_its_plain_version(cuda, case):
+    from hyperpocket_tpu_torch.models.target_network import batched_target_network_forward
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch_grad, decode_batch_grad_reference
+
+    channels, use_bias, batch, n = case
+    flat, pts, go = _grad_case(channels, use_bias, batch, n)
+    before = decode_batch_grad.launches
+    got = decode_batch_grad(flat, pts, go, channels, use_bias)
+    torch.cuda.synchronize()
+    assert decode_batch_grad.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == flat.shape
+    assert bool(torch.isfinite(got).all())
+    f = flat.clone().requires_grad_()
+    batched_target_network_forward(f, pts, list(channels), use_bias).backward(go)
+    assert _rel_l2(got, f.grad) <= DECODE_GRAD_REL_L2
+    plain = decode_batch_grad_reference(flat, pts, go, channels, use_bias)
+    assert _rel_l2(got, plain) <= DECODE_GRAD_REL_L2
+
+
+def test_decode_batch_grad_is_bit_equal_on_two_runs(cuda):
+    """No atomics: every sum in a fixed order."""
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch_grad
+
+    flat, pts, go = _grad_case((32, 64, 128, 64), True, 64, 2048, seed=5)
+    first = decode_batch_grad(flat, pts, go, (32, 64, 128, 64))
+    assert all(torch.equal(first, decode_batch_grad(flat, pts, go, (32, 64, 128, 64)))
+               for _ in range(3))
+
+
+def test_decode_batch_grad_opcheck_and_what_it_refuses(cuda):
+    from hyperpocket_tpu_torch.ops.decoder import decode_batch_grad
+
+    flat, pts, go = _grad_case((8, 16), True, 2, 100, seed=6)
+    torch.library.opcheck(torch.ops.hyperpocket.decode_batch_grad.default,
+                          (flat, pts, go, [8, 16], True))
+    with pytest.raises(ValueError, match="bf16"):
+        decode_batch_grad(flat.float(), pts.float(), go.float(), (8, 16))
+    with pytest.raises(ValueError, match="not fully consumed"):
+        decode_batch_grad(flat[:, 1:], pts, go, (8, 16))
+    for channels in ((136,), (96, 96, 96, 96)):  # wider than 128, more dW than it holds
+        flat, pts, go = _grad_case(channels, True, 1, 64)
+        with pytest.raises(ValueError, match="cannot take the widths"):
+            decode_batch_grad(flat, pts, go, channels)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_training_decode_routes_by_dtype_on_the_card(cuda, dtype):
+    """A bf16 training forward of the chair model decodes through K10 and
+    its backward once each, and its gradients lie within bf16 rounding of
+    the chain's on the same draws; fp32 keeps the chain and launches
+    neither."""
+    import copy
+
+    from hyperpocket_tpu_torch.models.full_model import FullModel
+    from hyperpocket_tpu_torch.ops import decoder
+
+    cfg = _settings("config_3depn_chair.json")["full_model"]
+    cfg["compute_dtype"] = dtype
+    base = FullModel.from_config(cfg, torch.Generator().manual_seed(7)).to(cuda)
+    existing, missing = _points(8, 1024, seed=20), _points(8, 1024, seed=21)
+    balls = _points(8, 2048, seed=22).float()
+    eps = torch.randn((8, base.get_noise_size()), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(23))
+    grads = {}
+    for route in ("own", "chain"):
+        model = copy.deepcopy(base)
+        own = decoder.decode_grad_route
+        if route == "chain":
+            decoder.decode_grad_route = lambda *a: "chain"
+        try:
+            before = (decoder.decode_batch.launches, decoder.decode_batch_grad.launches)
+            rec, mu, sigma = model.apply(existing, missing, None, 1.0, num_output_points=2048,
+                                         training=True, vae_eps=eps, ball_points=balls)
+            (rec.square().mean() + mu.square().mean() + sigma.mean()).backward()
+            torch.cuda.synchronize()
+            launched = (decoder.decode_batch.launches - before[0],
+                        decoder.decode_batch_grad.launches - before[1])
+        finally:
+            decoder.decode_grad_route = own
+        grads[route] = torch.cat([p.grad.flatten() for p in model.parameters()
+                                  if p.grad is not None])
+        k10 = route == "own" and dtype == "bfloat16"
+        assert launched == ((1, 1) if k10 else (0, 0)), (route, launched)
+    # fp32: the same route twice (the encoders' backward sums by atomics)
+    assert _rel_l2(grads["own"], grads["chain"]) <= (1e-6 if dtype == "float32" else 1e-2)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_a_served_request_launches_k10_once(cuda, dtype):
     """The chair model at full width: a ``make_serving_fn`` request decodes
     through K10 once (and runs K4 once in bf16), as one replay of its graph;
     the first request of a signature also runs the forward once eagerly, its
-    warm-up, so it counts each kernel twice. A train step launches no K10."""
+    warm-up, so it counts each kernel twice. A train step launches K10 in
+    bf16 only (the training decode's route, ``decode_grad_route``)."""
     from hyperpocket_tpu_torch import serving
     from hyperpocket_tpu_torch.models.full_model import FullModel
     from hyperpocket_tpu_torch.ops.decoder import decode_batch
@@ -745,20 +859,21 @@ def test_a_served_request_launches_k10_once(cuda, dtype):
     existing = _points(4, 1024, seed=13)
     noise = torch.randn((4, model.get_noise_size()), device=cuda,
                         generator=torch.Generator(device=cuda).manual_seed(14)) * 0.13
-    k4 = 1 if dtype == "bfloat16" else 0
+    bf16 = dtype == "bfloat16"
+    k4_a_call, train_k10 = int(bf16), int(bf16)  # K4 serves bf16 only; K10 trains bf16 only
     for seed, runs in ((3, 2), (4, 1)):  # warm-up and replay, then a replay
         before = (decode_batch.launches, trunk_pooled.launches)
         out = f(existing, noise, seed)
         torch.cuda.synchronize()
         assert (decode_batch.launches - before[0], trunk_pooled.launches - before[1]) == (
-            runs, runs * k4)
+            runs, runs * k4_a_call)
         assert out.shape == (4, 2048, 3) and bool(torch.isfinite(out).all())
     model = model.to(cuda)
     before = decode_batch.launches
     rec, _, _ = model.apply(existing, existing, torch.Generator(device=cuda).manual_seed(1),
                             1.0, num_output_points=2048, training=True)
     torch.cuda.synchronize()
-    assert decode_batch.launches == before and rec.shape == (4, 2048, 3)
+    assert decode_batch.launches == before + train_k10 and rec.shape == (4, 2048, 3)
 
 
 @pytest.mark.parametrize("channels", [(272,), (4100,), (8,) * 16])
@@ -1300,6 +1415,8 @@ def test_train_epoch_graph_equals_the_eager_loop(cuda, case, monkeypatch):
     per_step = {"nn_one_direction.launches": 2}
     if case.endswith("_k8"):
         per_step["trunk_pooled_argmax.launches"] = 2
+    if case.startswith("bfloat16"):  # the training decode: K10 and its backward
+        per_step.update({"decode_batch.launches": 1, "decode_batch_grad.launches": 1})
     assert eager["launches"] == {k: SCAN_STEPS * n for k, n in per_step.items()}
     assert scan["launches"] == {k: (SCAN_STEPS + 1) * n for k, n in per_step.items()}
     assert fn.launches_per_replay == {k.removesuffix(".launches"): n for k, n in per_step.items()}
@@ -1484,20 +1601,23 @@ def test_a_kept_graph_adds_its_captures_counters_once_a_call_under_a_profiler(cu
     """The fast config's epoch 1 captures with no profiler (nothing
     counted); epochs 2 and 3 replay the kept graph under one, and each adds
     what the capture tallied: ``adam_lowp.values`` a step's values a call,
-    K8 twice (both encoders), and ``scan.kept`` once."""
+    K8 twice (both encoders), the decode's route "k10" once, and
+    ``scan.kept`` once."""
     from hyperpocket_tpu_torch.utils import profiling
 
     profiling.reset()
     try:
         res = _epochs_kept("bfloat16_k8", modes=("kept",), traced_from=1)
         got = {k: n for k, (n, _) in profiling.totals().items()
-               if k in ("adam_lowp.values", "scan.kept") or k.startswith("encoder.trunk_route")}
+               if k in ("adam_lowp.values", "scan.kept")
+               or k.startswith(("encoder.trunk_route", "decoder.grad_route"))}
     finally:
         profiling.reset()
     calls = KEPT_EPOCHS - 1
     assert res["kept"]["fns"][0].reuses == calls
     assert got == {"adam_lowp.values": calls * res["kept"]["values_a_step"],
-                   "encoder.trunk_route.k8": 2 * calls, "scan.kept": calls}
+                   "encoder.trunk_route.k8": 2 * calls, "decoder.grad_route.k10": calls,
+                   "scan.kept": calls}
 
 
 def test_k4_and_k8_replay_after_an_in_place_weight_update(layers):

@@ -169,14 +169,16 @@ def test_the_totals_count_the_calls_epochs_batches_and_items(config, serve):
             serve(seed)
         _epochs(config, epochs)
     got = {k: n for k, (n, _) in profiling.totals().items()}
-    # the trunk's route is a count with no seconds
+    # the trunk's and the decode's routes are counts with no seconds
     seconds = {k: s for k, (_, s) in profiling.totals().items()
-               if not k.startswith("encoder.trunk_route.")}
+               if not k.startswith(("encoder.trunk_route.", "decoder.grad_route."))}
     assert all(s > 0 for s in seconds.values()), seconds
     steps = TRAIN_BATCHES + VAL_BATCHES
     assert got == {
         # a served call's real encoder; both encoders of every train and val step
         "encoder.trunk_route.chain": calls + 2 * steps * epochs,
+        # every train step's decode (the CPU keeps the chain)
+        "decoder.grad_route.chain": TRAIN_BATCHES * epochs,
         "serving.completion": calls, "serving.upload": calls, "serving.replay": calls,
         "trainer.train_epoch": epochs, "trainer.val_epoch": epochs,
         "trainer.collect": 2 * epochs, "loader.upload": 2 * epochs,

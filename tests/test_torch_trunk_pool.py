@@ -149,9 +149,9 @@ def test_build_failure_raises(tmp_path):
 
 def test_build_hash_covers_sources_and_flags(monkeypatch, tmp_path):
     assert [p.name for p in _build.sources()] == [
-        "adam_lowp.cu", "chamfer_loss_grad.cu", "decode_batch.cu", "decode_batch_tc.cu", "emd_match_cost.cu",
-        "emd_match_cost_grad.cu", "head_adam.cu", "nn_fused_planes.cu", "nn_min_fused.cu",
-        "nn_one_direction.cu", "trunk_pool.cu"]
+        "adam_lowp.cu", "chamfer_loss_grad.cu", "decode_batch.cu", "decode_batch_grad.cu",
+        "decode_batch_tc.cu", "emd_match_cost.cu", "emd_match_cost_grad.cu", "head_adam.cu",
+        "nn_fused_planes.cu", "nn_min_fused.cu", "nn_one_direction.cu", "trunk_pool.cu"]
     base = _build.source_hash()
     assert base == _build.source_hash() and len(base) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
