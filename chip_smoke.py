@@ -2883,9 +2883,8 @@ def drive_scan_epochs(device, tmp: Path) -> dict:
                 _zero_all()
                 with deterministic():
                     for epoch in (1, 2):
-                        t._maybe_switch_dtype(epoch)
+                        t.train_epoch(epoch)  # crosses the dtype switch at epoch 2
                         dtypes.append(t.model.compute_dtype)
-                        t.train_epoch(epoch)
                         rows.append(np.asarray(t.last_step_losses).copy())
                         vals.append(float(t.val_epoch(epoch)[0]["total"][0]))
                     torch.cuda.synchronize()

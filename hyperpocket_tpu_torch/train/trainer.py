@@ -57,7 +57,11 @@ Under a profiler (``training.profile``, ``utils/profiling.py``) an epoch
 is the span ``trainer.train_epoch`` or ``trainer.val_epoch`` over
 ``trainer.collect`` (a scanned epoch from the loader),
 ``trainer.tail_step`` (a batch through the step function) and
-``trainer.fetch``; ``run`` logs the spans' totals with the trace.
+``trainer.fetch``; ``run`` logs the spans' totals with the trace. A train
+epoch that crosses ``training.compute_dtype_switch`` does so first (the
+log names it), and every train epoch counts one under
+``trainer.compute_dtype.<dtype>``, the dtype it runs in (``tally``: in the
+totals under a profiler, in an open ``profiling.collected()`` always).
 
 Not ported: the compile cache (``setup.compile_cache``) and
 ``training.prng_impl``, which are not read.
@@ -492,7 +496,7 @@ class Trainer:
 
     def _maybe_switch_dtype(self, epoch: int) -> None:
         """Cross the ``compute_dtype_switch`` boundary once (a resumed run
-        crosses it the same way, since ``run`` checks every epoch)."""
+        crosses it the same way, since every ``train_epoch`` checks)."""
         if self._dtype_switch is None:
             return
         sw_epoch, sw_dtype = self._dtype_switch
@@ -584,8 +588,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> tuple[EpochStats, tuple | None]:
-        """One epoch of train steps; the stats are the true means over its steps."""
+        """One epoch of train steps in the compute dtype of ``epoch`` (the
+        ``compute_dtype_switch`` is crossed here, so every caller of the
+        epoch routine gets it); the stats are the true means over its steps."""
         with profiling.span("trainer.train_epoch", epoch):
+            self._maybe_switch_dtype(epoch)
+            profiling.tally(f"trainer.compute_dtype.{self.model.compute_dtype}")
             set_learning_rate(self.optimizer, self.lr_schedule(epoch))
             scan = self._epoch_scan_fn if self.injection_provider is None else None
             rows, latest, scanned = self._epoch(self.train_loader, epoch, scan, self._train_row,
@@ -633,7 +641,6 @@ class Trainer:
             profiling.reset()  # the spans' totals of the traced epochs alone
             profiler.start()
         for epoch in range(self.start_epoch, self.max_epoch + 1):
-            self._maybe_switch_dtype(epoch)
             t0 = time.monotonic()
             stats, latest = self.train_epoch(epoch)
             if (profiler is not None

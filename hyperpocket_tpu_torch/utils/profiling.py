@@ -67,7 +67,10 @@ reads each):
   (``models/encoder.py::trunk_grad_route``: ``k8``, ``sparse`` or
   ``chain``) once an encoder's training trunk, and ``adam_lowp.values``
   (``ops/adam_lowp.py``) the values an ``AdamLowp`` update launches over.
-  They reach the totals only while a profiler records.
+  They reach the totals only while a profiler records. The Trainer tallies
+  ``trainer.compute_dtype.<dtype>`` once a train epoch, under the dtype
+  the epoch runs in, outside any capture: an open ``collected()`` counts a
+  whole run's epochs, profiled or not.
 
 Reading a trace: the card is idle wherever no kernel, copy or fill runs;
 the innermost span around such a gap on the host's thread names what the

@@ -1620,6 +1620,84 @@ def test_a_kept_graph_adds_its_captures_counters_once_a_call_under_a_profiler(cu
                    "scan.kept": calls}
 
 
+def _write_shapenet(root, n_models: int, n_gt: int, n_part: int) -> None:
+    """A MissingShapeNet tree: 4 train objects, the rest val, one slice each."""
+    import numpy as np
+
+    from hyperpocket_tpu_torch.data.plyio import save_ply
+
+    cat, rng, names = "02691156", np.random.default_rng(7), []
+    for d in (root / cat, root / "slices" / "existing" / cat, root / "slices" / "missing" / cat):
+        d.mkdir(parents=True)
+    for i in range(n_models):
+        name = f"model{i:03d}"
+        names.append(f"{cat}/{name}")
+        gt = (rng.standard_normal((n_gt, 3)) * 0.2).astype(np.float32)
+        save_ply(str(root / cat / f"{name}.ply"), gt)
+        save_ply(str(root / "slices" / "existing" / cat / f"0~{name}.ply"), gt[:n_part])
+        save_ply(str(root / "slices" / "missing" / cat / f"0~{name}.ply"), gt[n_part:2 * n_part])
+    for split, sel in (("train", names[:4]), ("val", names[4:]), ("test", names[:1])):
+        (root / f"{split}.list").write_text("\n".join(sel) + "\n")
+
+
+def test_a_crossed_epoch_trains_in_tf32_through_the_fp32_routes(cuda, tmp_path):
+    """The fast recipe at tiny widths with its switch at epoch 1, scanned on
+    the card: epoch 1 runs bf16 (K8, K10), epoch 2 crosses inside
+    ``train_epoch`` and captures anew, epoch 3 replays that graph under a
+    profiler. Past the switch the matmuls are TF32 ("high") and the step's
+    routes the fp32 ones: "sparse" trunks (1024-point clouds), the decode's
+    chain; no K8 or K10 training launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperpocket_tpu_torch.ops import decode_batch_grad, trunk_pooled_argmax
+    from hyperpocket_tpu_torch.train.trainer import Trainer
+    from hyperpocket_tpu_torch.utils import profiling
+
+    _write_shapenet(tmp_path / "data", 6, 2048, 1024)
+    fast = _settings("config_3depn_chair_fast.json")
+    tr = fast["training"]
+    tr.update(epoch_mode="scan", max_epoch=3, min_save_epoch=3,
+              compute_dtype_switch={"epoch": 1, "compute_dtype": "float32"})
+    for part, batch in (("train", 2), ("val", 2)):
+        tr["dataloader"][part].update(batch_size=batch, num_workers=0)
+    fast["dataset"] = {"name": "shapenet", "path": str(tmp_path / "data"),
+                       "classes": ["02691156"], "is_rotated": False, "num_samples": 1,
+                       "gen_test_set": False}
+    fast["full_model"]["random_encoder"]["output_size"] = 16
+    fast["full_model"]["real_encoder"]["output_size"] = 16
+    fast["full_model"]["target_network"]["layer_out_channels"] = [8, 16, 8]
+    fast["results_root"] = str(tmp_path / "results")
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    profiling.reset()
+    try:
+        t = Trainer(fast, device=cuda)
+        fn = t._epoch_scan_fn
+        t.train_epoch(1)
+        assert t.model.compute_dtype == "bfloat16" and fn.captures == 1
+        k8, k10 = trunk_pooled_argmax.launches, decode_batch_grad.launches
+        assert k8 and k10  # the bf16 epoch's K8 and the decode's backward
+        t.train_epoch(2)
+        assert t.model.compute_dtype == "float32"
+        assert (fn.captures, fn.reuses) == (2, 0)
+        assert torch.get_float32_matmul_precision() == "high"
+        with profile(activities=[ProfilerActivity.CPU]):
+            t.train_epoch(3)
+        t.val_epoch(3)
+        torch.cuda.synchronize()
+        assert (fn.captures, fn.reuses) == (2, 1)
+        assert (trunk_pooled_argmax.launches, decode_batch_grad.launches) == (k8, k10)
+        assert bool(torch.isfinite(torch.as_tensor(t.last_step_losses)).all())
+        got = {k: n for k, (n, _) in profiling.totals().items()
+               if k.startswith(("encoder.trunk_route", "decoder.grad_route",
+                                "trainer.compute_dtype"))}
+        assert got == {"encoder.trunk_route.sparse": 2, "decoder.grad_route.chain": 1,
+                       "trainer.compute_dtype.float32": 1}
+    finally:
+        profiling.reset()
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def test_k4_and_k8_replay_after_an_in_place_weight_update(layers):
     """K4 and K8 encode their TMA maps at capture: with the weights and the
     input updated in place, replays give the eager kernels' outputs on the

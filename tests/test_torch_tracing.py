@@ -169,9 +169,10 @@ def test_the_totals_count_the_calls_epochs_batches_and_items(config, serve):
             serve(seed)
         _epochs(config, epochs)
     got = {k: n for k, (n, _) in profiling.totals().items()}
-    # the trunk's and the decode's routes are counts with no seconds
+    # the trunk's and the decode's routes and the epochs' dtype are counts with no seconds
     seconds = {k: s for k, (_, s) in profiling.totals().items()
-               if not k.startswith(("encoder.trunk_route.", "decoder.grad_route."))}
+               if not k.startswith(("encoder.trunk_route.", "decoder.grad_route.",
+                                    "trainer.compute_dtype."))}
     assert all(s > 0 for s in seconds.values()), seconds
     steps = TRAIN_BATCHES + VAL_BATCHES
     assert got == {
@@ -181,6 +182,7 @@ def test_the_totals_count_the_calls_epochs_batches_and_items(config, serve):
         "decoder.grad_route.chain": TRAIN_BATCHES * epochs,
         "serving.completion": calls, "serving.upload": calls, "serving.replay": calls,
         "trainer.train_epoch": epochs, "trainer.val_epoch": epochs,
+        "trainer.compute_dtype.float32": epochs,
         "trainer.collect": 2 * epochs, "loader.upload": 2 * epochs,
         "loader.wait": (steps + 2) * epochs, "loader.items": (7 - 1 + 5) * epochs,
         "loader.collate": steps * epochs,
